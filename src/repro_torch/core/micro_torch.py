@@ -1,0 +1,188 @@
+"""The fused multi-region micro greedy on the device (port of
+``repro/core/micro_jax.py:290-567``).
+
+ONE greedy covers every region of the slot: tasks are padded to an
+``(R, N_pad)`` bucket, servers to ``(R, S_pad)``, and the greedy itself
+is the hand-written kernel ``kernels/greedy_assign`` (its plain version
+on the CPU).  The locality rings of all regions live on the device as
+:class:`DeviceRings` and are carried across slots; the slot's one
+device-to-host sync is the assignment readback.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.micro_state import EMPTY, LocalityState
+from repro_torch.kernels.greedy_assign import (MAX_AGE, GreedyInputs,
+                                               ScoreConsts, greedy_assign)
+from repro_torch.obs import runtime as obs_rt
+from repro_torch.sim.cluster import MODEL_SWITCH_S
+from repro_torch.sim.state import _WARM_HIT_S, ACTIVE
+
+
+def bucket(n: int) -> int:
+    """Pad size for the task axis: powers of two below 256, multiples of
+    256 above."""
+    if n <= 16:
+        return 16
+    if n < 256:
+        return 1 << (n - 1).bit_length()
+    return 256 * (-(-n // 256))
+
+
+@dataclasses.dataclass
+class DeviceRings:
+    """Locality rings of ALL regions as stacked device tensors, carried
+    across slots.  Padded server rows stay EMPTY (never eligible)."""
+
+    mids: torch.Tensor       # (R, S_pad, K) int32
+    slots: torch.Tensor      # (R, S_pad, K) int32
+    embeds: torch.Tensor     # (R, S_pad, K, E) float32
+    norms: torch.Tensor      # (R, S_pad, K) float32
+
+    @property
+    def embed_dim(self) -> int:
+        return self.embeds.shape[3]
+
+    @classmethod
+    def empty(cls, n_regions: int, s_pad: int, keep: int, embed_dim: int,
+              device: torch.device) -> "DeviceRings":
+        shape = (n_regions, s_pad, keep)
+        return cls(
+            mids=torch.full(shape, EMPTY, dtype=torch.int32, device=device),
+            slots=torch.zeros(shape, dtype=torch.int32, device=device),
+            embeds=torch.zeros(shape + (embed_dim,), dtype=torch.float32,
+                               device=device),
+            norms=torch.zeros(shape, dtype=torch.float32, device=device))
+
+    def grown(self, embed_dim: int) -> "DeviceRings":
+        """Same history, embedding channel zero-padded to ``embed_dim``."""
+        if embed_dim <= self.embed_dim:
+            return self
+        return dataclasses.replace(self, embeds=torch.nn.functional.pad(
+            self.embeds, (0, embed_dim - self.embed_dim)))
+
+    def region_state(self, ridx: int, n_servers: int) -> LocalityState:
+        """One region's rings as a host ``LocalityState`` (uids synthesized
+        from a per-region range, as the reference does)."""
+        mids = self.mids[ridx, :n_servers].cpu().numpy()
+        keep = mids.shape[1]
+        base = ridx * self.mids.shape[1] * keep
+        return LocalityState(
+            mids=mids, slots=self.slots[ridx, :n_servers].cpu().numpy(),
+            embeds=self.embeds[ridx, :n_servers].cpu().numpy(),
+            norms=self.norms[ridx, :n_servers].cpu().numpy(),
+            uid=np.arange(base + 1, base + 1 + mids.size,
+                          dtype=np.int64).reshape(mids.shape),
+            count=(mids != EMPTY).sum(axis=1).astype(np.int32))
+
+
+def server_pad_map(region_ptr: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(R, S_pad) global-index map + validity mask for the padded server
+    axis (padded entries alias global index 0 but are masked inactive)."""
+    sizes = np.diff(region_ptr)
+    s_pad = max(int(sizes.max()), 1) if sizes.size else 1
+    idx = region_ptr[:-1, None] + np.arange(s_pad)[None, :]
+    valid = np.arange(s_pad)[None, :] < sizes[:, None]
+    return np.where(valid, idx, 0), valid
+
+
+def note_norms(t_emb: torch.Tensor) -> torch.Tensor:
+    """Per-row L2 norms of the embeddings a ring stores, on ``t_emb``'s
+    device, bitwise equal to each row's own ``np.linalg.norm`` (the value
+    the numpy oracle writes into its rings): float32 squares summed left
+    to right in float64 and rounded to float32, as OpenBLAS's ``sdot``
+    does for rows shorter than 32, then a square root rounded once to
+    float32 (the float64 root of a float32, rounded, is the correctly
+    rounded float32 root).  Zero-padded columns add exact zeros."""
+    acc = torch.zeros(t_emb.shape[:-1], dtype=torch.float64,
+                      device=t_emb.device)
+    for e in range(t_emb.shape[-1]):
+        acc = acc + (t_emb[..., e] * t_emb[..., e]).double()
+    return acc.float().double().sqrt().float()
+
+
+def assign_scan_all(alloc, obs, ridx_rows: np.ndarray, *, mem_t, work, mids,
+                    kind_ids, embeds, has_embed, norms) -> np.ndarray:
+    """Host wrapper of the fused greedy.  ``ridx_rows[i]`` is the target
+    region of row ``i``; rows are already in each region's greedy order.
+    Returns the per-row server index within its region (-1 = buffer).
+    The rings stay on ``alloc.device`` in ``alloc._dev_rings``."""
+    from repro_torch.core import micro
+    st = obs.state
+    r = st.n_regions
+    n = len(work)
+    if n == 0:
+        return np.zeros(0, np.int32)
+    slot_s = obs.slot_seconds
+    dev = alloc.device
+
+    gmap, valid = server_pad_map(st.region_ptr)
+    s_pad = gmap.shape[1]
+    rings = alloc._ensure_dev_rings(r, s_pad, max(embeds.shape[1], 1))
+    if embeds.shape[1] < rings.embed_dim:
+        embeds = np.pad(embeds,
+                        ((0, 0), (0, rings.embed_dim - embeds.shape[1])))
+
+    counts = np.bincount(ridx_rows, minlength=r)
+    n_pad = bucket(int(counts.max()))
+    obs_rt.count_new_shape("micro.shape.scan_all",
+                           f"{r}x{n_pad}x{s_pad}x{rings.embed_dim}")
+
+    # position of each row within its region (appearance order preserved)
+    sort_idx = np.argsort(ridx_rows, kind="stable")
+    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    pos = np.empty(n, np.int64)
+    pos[sort_idx] = np.arange(n) - starts[ridx_rows[sort_idx]]
+
+    def to_dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def scatter(values, dtype):
+        out = np.zeros((r, n_pad) + values.shape[1:], dtype)
+        out[ridx_rows, pos] = values
+        return to_dev(out)
+
+    util = to_dev(st.util[gmap])
+    proj0 = to_dev(np.where(valid, st.queue_s[gmap], 0.0).astype(np.float64))
+    t_kinds = scatter(kind_ids, np.int32)
+    t_emb = scatter(embeds, np.float32)
+    x = GreedyInputs(
+        tflops=to_dev(st.tflops[gmap]), mem_s=to_dev(st.mem_gb[gmap]),
+        kind_s=to_dev(st.kind_id[gmap].astype(np.int32)),
+        # Eq 9 load term is static during the pass (util/queue snapshot)
+        load=torch.exp(-(util + proj0 / max(slot_s, 1e-9))),
+        cur_model=to_dev(st.current_model[gmap].astype(np.int32)),
+        warm_srv=to_dev(st.warm_models[gmap].astype(np.int32)),
+        switch_scale=to_dev(st.switch_scale[gmap]),
+        active=to_dev((st.state[gmap] == ACTIVE) & valid),
+        # host numpy true division, as the numpy oracle computes it
+        speed=to_dev(np.maximum(st.tflops[gmap] / 112.0, 0.1)),
+        proj0=proj0,
+        l_mids=rings.mids, l_slots=rings.slots, l_emb=rings.embeds,
+        l_nrm=rings.norms,
+        t_mids=scatter(mids, np.int32), t_kinds=t_kinds,
+        t_mem=scatter(mem_t, np.float64), t_work=scatter(work, np.float64),
+        t_demand=to_dev(micro._DEMAND_BY_KIND.astype(np.float64))[
+            t_kinds.long()],
+        t_emb=t_emb, t_norms=scatter(norms, np.float32),
+        t_note=note_norms(t_emb),
+        t_has=scatter(has_embed, bool),
+        n_real=to_dev(counts.astype(np.int64)),
+        # exp(LOC_DECAY * age) for every clipped age, computed once on the
+        # CPU so the table is the same whichever device runs the greedy
+        decay=torch.exp(micro.LOC_DECAY * torch.arange(
+            MAX_AGE + 1, dtype=torch.float64)).to(dev),
+        t=int(obs.t), slot_s=float(slot_s),
+        consts=ScoreConsts(micro.W_HW, micro.W_LOAD, micro.W_LOC,
+                           micro.W_WARM, micro.W_MODEL, micro.W_EMBED,
+                           _WARM_HIT_S, MODEL_SWITCH_S))
+    out, new_rings = greedy_assign(x)
+    alloc._dev_rings = DeviceRings(*new_rings)
+    obs_rt.count("micro.host_sync.scan_all")
+    out_np = out.cpu().numpy()             # the one device->host sync
+    return out_np[ridx_rows, pos].astype(np.int32)

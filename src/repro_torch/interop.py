@@ -1,0 +1,50 @@
+"""Build the port's state from plain numpy arrays, so the port and another
+implementation (the JAX reference in the tests) can start from identical
+state.  The functions take arrays only; nothing here imports the other
+implementation."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.micro_torch import DeviceRings
+from repro_torch.sim.state import ClusterState
+
+_DTYPES = {"region_ptr": np.int64, "power_price": np.float64,
+           "gpu_id": np.int8, "tflops": np.float64, "mem_gb": np.float64,
+           "power_w": np.float64, "kind_id": np.int8,
+           "capacity": np.float64, "switch_scale": np.float64,
+           "state": np.int8, "warm_remaining_s": np.float64,
+           "queue_s": np.float64, "util": np.float64,
+           "idle_slots": np.int64, "current_model": np.int16,
+           "warm_models": np.int16}
+
+
+def cluster_state_from_arrays(**fields: np.ndarray) -> ClusterState:
+    """A port ``ClusterState`` from every ``ClusterState`` field given as
+    a numpy array (copied, in the port's dtypes)."""
+    names = {f.name for f in dataclasses.fields(ClusterState)}
+    if set(fields) != names:
+        raise ValueError(f"cluster_state_from_arrays: missing "
+                         f"{sorted(names - set(fields))}, unknown "
+                         f"{sorted(set(fields) - names)}")
+    return ClusterState(**{k: np.array(v, dtype=_DTYPES[k])
+                           for k, v in fields.items()})
+
+
+def rings_from_arrays(mids: np.ndarray, slots: np.ndarray,
+                      embeds: np.ndarray, norms: np.ndarray, *,
+                      device="cuda") -> DeviceRings:
+    """The port's ``DeviceRings`` from stacked (R, S_pad, K[, E]) ring
+    arrays."""
+    device = resolve_device(device)
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    return DeviceRings(mids=dev(mids, torch.int32),
+                       slots=dev(slots, torch.int32),
+                       embeds=dev(embeds, torch.float32),
+                       norms=dev(norms, torch.float32))

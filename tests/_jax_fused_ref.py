@@ -1,0 +1,74 @@
+"""The JAX package's fused path as a reference for the port's tests.
+
+On jax releases that dropped ``jax.experimental.enable_x64``, the fused
+modules (``core/micro_jax.py``, ``sim/engine_jax.py``) import only after
+that name is aliased to ``jax.enable_x64``.  This script sets the alias
+in its own interpreter, runs one case and writes the results to an
+``.npz``; the test process never imports the fused modules.
+
+    python tests/_jax_fused_ref.py greedy R SPR SEED OUT.npz
+    python tests/_jax_fused_ref.py slice CASE OUT.npz
+"""
+from __future__ import annotations
+
+import sys
+
+import jax
+import jax.experimental
+import numpy as np
+
+if not hasattr(jax.experimental, "enable_x64"):
+    jax.experimental.enable_x64 = jax.enable_x64
+
+from _torch_port import (SLICE_SLOTS, Recorder, ref_failures, ref_obs,  # noqa: E402
+                         slice_case, sweep_slots)
+
+from repro.core.micro import MicroAllocator  # noqa: E402
+from repro.core.torta import TortaScheduler  # noqa: E402
+from repro.sim import Engine  # noqa: E402
+
+
+def greedy(r: int, spr: int, seed: int) -> dict:
+    alloc = MicroAllocator(backend="fused")
+    out = {}
+    for t, cs, batch, region_of in sweep_slots(r, spr, seed):
+        out[f"out_{t}"] = alloc.assign_batch_all(ref_obs(cs, t), batch,
+                                                 region_of)
+    for j in range(r):
+        st = alloc.locality_state(j)
+        if st is not None:
+            for name in ("mids", "slots", "embeds", "norms", "count"):
+                out[f"{name}_{j}"] = getattr(st, name)
+    return out
+
+
+def slice_run(case: str) -> dict:
+    c = slice_case(case)
+    rec = Recorder(TortaScheduler(c.topo.n_regions, seed=0,
+                                  micro_backend="fused",
+                                  use_sinkhorn_kernel=True))
+    summary = Engine(c.topo, c.cs.copy(), c.workload, rec, seed=0,
+                     failures=ref_failures(c.failures),
+                     step_backend="jax").run(SLICE_SLOTS).summary()
+    out = {"summary_keys": np.array(sorted(summary)),
+           "summary_vals": np.array([summary[k] for k in sorted(summary)],
+                                    np.float64)}
+    for t, (region, server, _, _) in enumerate(rec.decisions):
+        out[f"region_{t}"] = region
+        out[f"server_{t}"] = server
+    return out
+
+
+def main(argv) -> None:
+    mode, *args, path = argv
+    if mode == "greedy":
+        result = greedy(*(int(a) for a in args))
+    elif mode == "slice":
+        result = slice_run(*args)
+    else:
+        raise SystemExit(f"unknown mode {mode!r}")
+    np.savez(path, **result)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

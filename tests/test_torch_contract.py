@@ -1,0 +1,143 @@
+"""The port's contract with the rest of the repo: it imports neither jax
+nor the JAX package, its entry points default to the card and raise
+without one, and the constants it copied equal the reference's."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core.env as ref_env
+import repro.core.micro as ref_micro
+import repro.sim.cluster as ref_cluster
+import repro.sim.state as ref_state
+import repro.workload.batch as ref_batch
+import repro_torch.core.micro as micro
+import repro_torch.core.predictor as predictor
+import repro_torch.sim.cluster as cluster
+import repro_torch.sim.state as state
+import repro_torch.workload.batch as batch
+from repro_torch.core.macro import MacroAllocator
+from repro_torch.core.micro import MicroAllocator
+from repro_torch.core.torta import TortaScheduler
+from repro_torch.interop import rings_from_arrays
+from repro_torch.sim.engine import Engine
+from repro_torch.sim.state import make_cluster_state
+from repro_torch.sim.topology import Topology
+from repro_torch.workload import StreamingWorkload
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "repro")
+
+
+def _imported_roots(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_neither_jax_nor_reference(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    """Every module of the port (and chip_smoke.py) imports in a fresh
+    interpreter in which ``import jax`` and ``import repro`` fail."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n")
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _engine_args():
+    cs = make_cluster_state(2, seed=0, servers_per_region=(3, 4))
+    lat = np.full((2, 2), 10.0)
+    src = StreamingWorkload(np.full((2, 2), 3.0), seed=0)
+    return Topology("t2", 2, 10, lat), cs, src
+
+
+ENTRY_POINTS = {
+    "TortaScheduler": lambda: TortaScheduler(3),
+    "MacroAllocator": lambda: MacroAllocator(3),
+    "MicroAllocator": lambda: MicroAllocator(),
+    "Engine": lambda: Engine(*_engine_args(),
+                             TortaScheduler(2, device="cpu")),
+    "Engine(numpy)": lambda: Engine(*_engine_args(),
+                                    TortaScheduler(2, device="cpu"),
+                                    step_backend="numpy"),
+    "rings_from_arrays": lambda: rings_from_arrays(
+        np.zeros((1, 1, 4)), np.zeros((1, 1, 4)), np.zeros((1, 1, 4, 8)),
+        np.zeros((1, 1, 4))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_point_without_card_raises(name, no_card):
+    with pytest.raises(RuntimeError, match="CUDA device required"):
+        ENTRY_POINTS[name]()
+
+
+CONSTANTS = [
+    (micro, ref_micro, "W_HW"), (micro, ref_micro, "W_LOAD"),
+    (micro, ref_micro, "W_LOC"), (micro, ref_micro, "W_WARM"),
+    (micro, ref_micro, "W_MODEL"), (micro, ref_micro, "W_EMBED"),
+    (micro, ref_micro, "LOC_DECAY"), (micro, ref_micro, "_DEMAND_BY_KIND"),
+    (micro, ref_micro, "_MODEL_RANK"), (micro, ref_micro, "KIND_ORDER"),
+    (cluster, ref_cluster, "GPU_TYPES"), (cluster, ref_cluster, "MODEL_SWITCH_S"),
+    (cluster, ref_cluster, "MODEL_CATALOG"), (cluster, ref_cluster, "COLD_START_S"),
+    (cluster, ref_cluster, "SWITCH_POWER_FRAC"),
+    (state, ref_state, "_WARM_HIT_S"), (state, ref_state, "MODEL_NAMES"),
+    (state, ref_state, "WARM_SLOTS"), (state, ref_state, "KINDS"),
+    (predictor, ref_env, "K_HIST"), (batch, ref_batch, "EMBED_DIM"),
+    (micro.MicroAllocator, ref_micro.MicroAllocator, "KEEP"),
+]
+
+
+@pytest.mark.parametrize("port,ref,name", CONSTANTS,
+                         ids=[c[2] for c in CONSTANTS])
+def test_copied_constant_equals_reference(port, ref, name):
+    got, want = getattr(port, name), getattr(ref, name)
+    if isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype
+    else:
+        assert got == want
+
+
+def test_copied_cluster_builder_matches_reference():
+    """Same seeds, same fleet: every field of ``make_cluster_state``."""
+    from repro.sim.state import make_cluster_state as ref_mcs
+    got = make_cluster_state(7, seed=11, servers_per_region=(3, 9))
+    want = ref_mcs(7, seed=11, servers_per_region=(3, 9))
+    for name in want.__dataclass_fields__:
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name),
+                                      err_msg=name)
+        assert getattr(got, name).dtype == getattr(want, name).dtype, name

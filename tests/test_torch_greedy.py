@@ -1,0 +1,213 @@
+"""The port's fused multi-region greedy (plain version of the
+``greedy_assign`` kernel, on the CPU) against the JAX package: the numpy
+oracle ``MicroAllocator(backend="numpy")._assign_core`` region by region,
+and the fused JAX scan itself in a separate process.  Assignments and
+ring contents must be identical."""
+import numpy as np
+import pytest
+import torch
+
+from _torch_port import (port_batch, port_obs, ref_obs, run_jax_fused,
+                         sweep_slots, world)
+from repro.core.micro import MicroAllocator as RefMicro
+from repro.sim.state import OFF
+from repro.workload import make_source
+from repro_torch.core.micro import MicroAllocator
+from repro_torch.core.micro_torch import (bucket, note_norms,
+                                          server_pad_map)
+from repro_torch.interop import rings_from_arrays
+from repro_torch.kernels.greedy_assign import greedy_assign
+
+# (regions, servers per region, seed): the randomized sweep of the fused
+# step tests, with every size class and a 1-region case
+SWEEP = [(1, 3, 0), (1, 17, 4096), (2, 8, 17), (3, 3, 1234), (3, 17, 77),
+         (4, 8, 9_999), (5, 3, 31), (5, 17, 2024)]
+RING_FIELDS = ("mids", "slots", "count", "embeds", "norms")
+
+
+def _assert_rings_equal(ref, got, j):
+    if ref is None:
+        assert got is None or (got.count == 0).all(), f"region {j}"
+        return
+    for name in RING_FIELDS:
+        np.testing.assert_array_equal(getattr(ref, name), getattr(got, name),
+                                      err_msg=f"region {j} {name}")
+
+
+def _run_sweep(r, spr, seed):
+    """Port assignments per slot and the port allocator, plus the numpy
+    oracle's per-region assignments and allocator."""
+    ref = RefMicro(backend="numpy")
+    port = MicroAllocator(device="cpu")
+    pairs = []
+    for t, cs, batch, region_of in sweep_slots(r, spr, seed):
+        obs = ref_obs(cs, t)
+        want = np.full(len(batch), -1, np.int32)
+        for j in range(r):
+            idx = np.flatnonzero(region_of == j)
+            if idx.size:
+                want[idx] = ref.assign_batch(obs, j, batch, idx)
+        got = port.assign_batch_all(port_obs(obs), port_batch(batch),
+                                    region_of)
+        pairs.append((t, want, got))
+    return pairs, ref, port
+
+
+@pytest.mark.parametrize("r,spr,seed", SWEEP)
+def test_fused_greedy_matches_numpy_oracle(r, spr, seed):
+    """Identical assignments slot by slot (rings carried across 3 slots,
+    zero-task and all-inactive regions included) and identical rings."""
+    pairs, ref, port = _run_sweep(r, spr, seed)
+    for t, want, got in pairs:
+        np.testing.assert_array_equal(got, want, err_msg=f"slot {t}")
+    for j in range(r):
+        _assert_rings_equal(ref.locality_state(j), port.locality_state(j), j)
+
+
+def test_fused_greedy_matches_fused_jax_scan(tmp_path):
+    """One sweep case against ``micro_jax.assign_scan_all`` itself.  The
+    fused JAX scan stores XLA's row norms in its rings, which may differ
+    from the numpy oracle's in the last ulp, so ring norms are compared
+    to float32 rounding there and everything else exactly."""
+    r, spr, seed = 4, 8, 9_999
+    ref = run_jax_fused(tmp_path, "greedy", str(r), str(spr), str(seed))
+    pairs, _, port = _run_sweep(r, spr, seed)
+    for t, _, got in pairs:
+        np.testing.assert_array_equal(got, ref[f"out_{t}"],
+                                      err_msg=f"slot {t}")
+    for j in range(r):
+        got = port.locality_state(j)
+        if f"mids_{j}" not in ref:
+            assert got is None or (got.count == 0).all()
+            continue
+        for name in ("mids", "slots", "count", "embeds"):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          ref[f"{name}_{j}"],
+                                          err_msg=f"region {j} {name}")
+        np.testing.assert_allclose(got.norms, ref[f"norms_{j}"],
+                                   rtol=2e-7, atol=0)
+
+
+def test_single_region_assign_core_matches_oracle():
+    """The per-region ``_assign_core`` API rides the same fused greedy
+    and device rings, and still matches the oracle across slots."""
+    cs, rng = world(1, 9, 23)
+    ref = RefMicro(backend="numpy")
+    port = MicroAllocator(device="cpu")
+    for t in range(3):
+        n = 21
+        embeds = rng.standard_normal((n, 8)).astype(np.float32)
+        has = rng.random(n) > 0.25
+        embeds[~has] = 0.0
+        arrs = dict(mem_t=rng.uniform(1.0, 40.0, n),
+                    work=rng.uniform(1.0, 60.0, n),
+                    mids=rng.integers(0, 6, n).astype(np.int16),
+                    kind_ids=rng.integers(0, 3, n).astype(np.int8),
+                    embeds=embeds, has_embed=has,
+                    norms=np.linalg.norm(embeds, axis=1))
+        obs = ref_obs(cs, t)
+        np.testing.assert_array_equal(port._assign_core(port_obs(obs), 0,
+                                                        **arrs),
+                                      ref._assign_core(obs, 0, **arrs),
+                                      err_msg=f"slot {t}")
+    _assert_rings_equal(ref.locality_state(0), port.locality_state(0), 0)
+
+
+def test_zero_tasks_and_unrouted_rows_stay_buffered():
+    cs, _ = world(2, 5, 11)
+    port = MicroAllocator(device="cpu")
+    batch = port_batch(make_source("diurnal", 1, 2, seed=3,
+                                   base_rate=6.0).slot_batch(0))
+    obs = port_obs(ref_obs(cs, 0))
+    out = port.assign_batch_all(obs, batch.select(np.arange(0)),
+                                np.zeros(0, np.int32))
+    assert out.shape == (0,)
+    out = port.assign_batch_all(obs, batch,
+                                np.full(len(batch), -1, np.int32))
+    assert (out == -1).all()
+    assert port.locality_state(0) is None
+
+
+def test_all_inactive_fleet_assigns_nothing():
+    cs, rng = world(3, 4, 7)
+    cs.state[:] = OFF
+    batch = port_batch(make_source("diurnal", 1, 3, seed=5,
+                                   base_rate=8.0).slot_batch(0))
+    port = MicroAllocator(device="cpu")
+    out = port.assign_batch_all(port_obs(ref_obs(cs, 0)), batch,
+                                rng.integers(0, 3, len(batch)).astype(
+                                    np.int32))
+    assert (out == -1).all()
+    for j in range(3):
+        assert (port.locality_state(j).count == 0).all()
+
+
+def test_bucket_and_server_pad_map():
+    """Task-axis buckets (powers of two below 256, multiples of 256 above)
+    and the padded server map of ``micro_jax``."""
+    assert [bucket(n) for n in (1, 16, 17, 100, 255, 256, 257, 5889)] == \
+        [16, 16, 32, 128, 256, 256, 512, 6144]
+    gmap, valid = server_pad_map(np.array([0, 3, 3, 5]))
+    np.testing.assert_array_equal(gmap, [[0, 1, 2], [0, 0, 0], [3, 4, 0]])
+    np.testing.assert_array_equal(valid, [[1, 1, 1], [0, 0, 0], [1, 1, 0]])
+
+
+@pytest.mark.parametrize("width,pad", [(1, 0), (3, 5), (8, 0), (16, 0)])
+def test_note_norms_equal_numpy_row_norms(width, pad):
+    """The device-side ring norms are bitwise the numpy oracle's per-row
+    ``np.linalg.norm``, over a wide dynamic range and with the embedding
+    channel zero-padded as the wrapper pads it."""
+    rng = np.random.default_rng(width * 31 + pad)
+    n = 20_000
+    emb = (rng.standard_normal((n, width))
+           * np.exp(rng.uniform(-20, 20, (n, 1)))).astype(np.float32)
+    want = np.array([np.linalg.norm(row) for row in emb], np.float32)
+    got = note_norms(torch.from_numpy(np.pad(emb, ((0, 0), (0, pad)))))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_greedy_wrapper_counts_no_launch_on_cpu():
+    """On a CPU operand set the wrapper runs the plain version and counts
+    no kernel launch."""
+    cs, rng = world(2, 6, 3)
+    port = MicroAllocator(device="cpu")
+    batch = port_batch(make_source("diurnal", 1, 2, seed=1,
+                                   base_rate=6.0).slot_batch(0))
+    before = greedy_assign.launches
+    port.assign_batch_all(port_obs(ref_obs(cs, 0)), batch,
+                          rng.integers(0, 2, len(batch)).astype(np.int32))
+    assert greedy_assign.launches == before
+    assert port._dev_rings.mids.device == torch.device("cpu")
+
+
+def test_port_continues_from_reference_rings():
+    """``interop.rings_from_arrays`` seeds the port with the oracle's
+    rings after one slot; the next slot then assigns identically."""
+    r, spr, seed = 3, 8, 42
+    ref = RefMicro(backend="numpy")
+    port = MicroAllocator(device="cpu")
+    for t, cs, batch, region_of in sweep_slots(r, spr, seed, n_slots=2):
+        obs = ref_obs(cs, t)
+        want = np.full(len(batch), -1, np.int32)
+        for j in range(r):
+            idx = np.flatnonzero(region_of == j)
+            if idx.size:
+                want[idx] = ref.assign_batch(obs, j, batch, idx)
+        if t == 0:
+            s_pad = int(cs.region_sizes().max())
+            rings = {name: np.zeros((r, s_pad) + getattr(
+                ref.locality_state(0), name).shape[1:],
+                getattr(ref.locality_state(0), name).dtype)
+                for name in ("mids", "slots", "embeds", "norms")}
+            rings["mids"][:] = -2                       # EMPTY
+            for j in range(r):
+                st = ref.locality_state(j)
+                if st is not None:
+                    for name, arr in rings.items():
+                        arr[j, :st.mids.shape[0]] = getattr(st, name)
+            port._dev_rings = rings_from_arrays(**rings, device="cpu")
+            continue
+        got = port.assign_batch_all(port_obs(obs), port_batch(batch),
+                                    region_of)
+        np.testing.assert_array_equal(got, want, err_msg=f"slot {t}")
