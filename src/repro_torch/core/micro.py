@@ -2,23 +2,37 @@
 server activation (Eq 6) + greedy task-server matching by compatibility
 score (Eqs 7-10) + task buffering.
 
-Only the fused route is ported: ONE multi-region greedy per slot
-(``core/micro_torch.py``, the hand-written kernel on the card) with the
-locality rings kept on the device across slots.  The Eq-6 activation
-targets stay host arithmetic, as in the reference.
+Four backends, as in the reference:
+
+* ``"fused"`` (the port's default): ONE multi-region greedy per slot
+  (``core/micro_torch.assign_scan_all``, the ``greedy_assign`` kernel on
+  the card) with the locality rings of all regions kept on the device;
+* ``"jax"``: the same kernel one region at a time
+  (``micro_torch.assign_scan``), the region's rings in a host
+  ``LocalityState``; with ``fused=True`` its static score comes from the
+  ``fused_score`` kernel (float32);
+* ``"pallas"``: the host greedy walk, its hw+load matrix from the
+  ``compat_score`` kernel (float32, read back as float64);
+* ``"numpy"``: the same walk with the float64 ``hw_load_matrix_np``, the
+  route's plain form.
+
+The Eq-6 activation targets stay host arithmetic, as in the reference.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.micro_state import LocalityState
-from repro_torch.core.micro_torch import DeviceRings, assign_scan_all
+from repro_torch.core.micro_torch import (DeviceRings, assign_scan,
+                                          assign_scan_all)
+from repro_torch.kernels.compat_score import score_matrix
 from repro_torch.obs import runtime as obs_rt
-from repro_torch.sim.state import MODEL_NAMES
+from repro_torch.sim.state import ACTIVE, MODEL_NAMES, ClusterState
 
 W_HW, W_LOAD, W_LOC = 0.4, 0.4, 0.2      # Eq 7 weights
 W_WARM = 2.0                             # same-model (no-switch) bonus
@@ -35,6 +49,11 @@ _DEMAND_BY_KIND = np.array([DEMAND_TFLOPS[k] for k in KIND_ORDER])
 _MODEL_RANK = np.empty(len(MODEL_NAMES), np.int64)
 _MODEL_RANK[np.argsort(np.array(MODEL_NAMES))] = np.arange(len(MODEL_NAMES))
 
+# server-feature "capacity" channel fed to the compat_score kernel: the
+# kernel computes load = exp(-4*(util+queue)/cap), so cap=4 reduces it to
+# this module's Eq 9 form exp(-(util+queue))
+KERNEL_LOAD_CAP = 4.0
+
 
 def target_active_servers(queue_tasks: float, predicted: float,
                           avg_capacity: float, n_servers: int, *,
@@ -46,29 +65,133 @@ def target_active_servers(queue_tasks: float, predicted: float,
     return int(min(n_servers, max(1, math.ceil(headroom * need))))
 
 
+def task_feature_arrays(kind_id: np.ndarray,
+                        mem_gb: np.ndarray) -> np.ndarray:
+    """(N, 8) float64: [demand_tflops, mem_gb, kind one-hot x3, 0, 0, 0]."""
+    n = len(kind_id)
+    f = np.zeros((n, 8))
+    kid = kind_id.astype(np.int64)
+    f[:, 0] = _DEMAND_BY_KIND[kid]
+    f[:, 1] = mem_gb
+    f[np.arange(n), 2 + kid] = 1.0
+    return f
+
+
+def server_feature_matrix(state: ClusterState, sl: slice,
+                          slot_s: float) -> np.ndarray:
+    """(S, 8) float64: [tflops, mem_gb, kind one-hot x3, util, queue_norm,
+    KERNEL_LOAD_CAP]."""
+    s = sl.stop - sl.start
+    f = np.zeros((s, 8))
+    f[:, 0] = state.tflops[sl]
+    f[:, 1] = state.mem_gb[sl]
+    f[np.arange(s), 2 + state.kind_id[sl].astype(np.int64)] = 1.0
+    f[:, 5] = state.util[sl]
+    f[:, 6] = state.queue_s[sl] / max(slot_s, 1e-9)
+    f[:, 7] = KERNEL_LOAD_CAP
+    return f
+
+
+def hw_load_matrix_np(task_feats: np.ndarray,
+                      server_feats: np.ndarray) -> np.ndarray:
+    """(N, S) float64 W_HW*hw + W_LOAD*load, in the numpy oracle's op
+    order (the float64 form of the ``compat_score`` kernel)."""
+    demand = task_feats[:, 0][:, None]
+    mem_t = task_feats[:, 1][:, None]
+    tflops = server_feats[:, 0][None, :]
+    mem_s = server_feats[:, 1][None, :]
+    c = np.minimum(1.0, tflops / demand)
+    m = np.minimum(1.0, mem_s / np.maximum(mem_t, 1e-9))
+    kind_t = np.argmax(task_feats[:, 2:5], axis=1)
+    kind_s = np.argmax(server_feats[:, 2:5], axis=1)
+    type_match = np.where(kind_t[:, None] == kind_s[None, :], 1.0, 0.5)
+    hw = c * m * type_match
+    load = np.exp(-(server_feats[:, 5] + server_feats[:, 6]))[None, :]
+    return W_HW * hw + W_LOAD * load
+
+
+def hw_load_matrix(task_feats: np.ndarray, server_feats: np.ndarray, *,
+                   backend: str = "numpy", device="cuda") -> np.ndarray:
+    """(N, S) float64 W_HW*hw + W_LOAD*load.  ``backend="pallas"`` runs it
+    through the ``compat_score`` kernel on ``device`` (float32, no
+    locality operand), read back and widened to float64."""
+    if backend == "pallas":
+        dev = resolve_device(device)
+
+        def f32(a):
+            return torch.from_numpy(a.astype(np.float32)).to(dev)
+        return score_matrix(f32(task_feats), f32(server_feats)).cpu() \
+            .numpy().astype(np.float64)
+    if backend == "numpy":
+        return hw_load_matrix_np(task_feats, server_feats)
+    raise ValueError(f"unknown micro backend: {backend!r}")
+
+
+def batched_score_matrix(task_feats: np.ndarray, server_feats: np.ndarray,
+                         locality: np.ndarray, *, backend: str = "numpy",
+                         device="cuda") -> np.ndarray:
+    """One (N, S) Eq 7-10 static score matrix: W_HW*hw + W_LOAD*load +
+    W_LOC*locality, the locality added on the host."""
+    return hw_load_matrix(task_feats, server_feats, backend=backend,
+                          device=device) + W_LOC * locality
+
+
+def _task_arrays(batch, sidx: np.ndarray, work: np.ndarray) -> dict:
+    """The greedy's per-task arrays for ``TaskBatch`` rows ``sidx``, already
+    in greedy order (``work`` is ``batch.work_s[sidx]``)."""
+    embeds = batch.embeds[sidx]
+    norms = np.linalg.norm(embeds, axis=1)
+    return dict(mem_t=batch.mem_gb[sidx], work=work,
+                mids=batch.model_idx[sidx].astype(np.int16),
+                kind_ids=batch.kind_id[sidx], embeds=embeds,
+                # a zero row is TaskBatch's encoding of "no embedding"
+                has_embed=norms > 0.0, norms=norms)
+
+
 class MicroAllocator:
-    """Urgency-first greedy matching (Algorithm 1, Phase 2) of every
-    region of a slot in one fused greedy on ``device``."""
+    """Urgency-first greedy matching (Algorithm 1, Phase 2) on
+    ``device``: every region of a slot in one greedy (``"fused"``), or one
+    region at a time through ``assign_batch`` (the other backends), the
+    region's rings then kept as a host ``LocalityState``."""
 
     KEEP = 4                      # locality history depth
 
     def __init__(self, sigma: float = 1.0, headroom: float = 2.0, *,
+                 backend: str = "fused", fused: bool = False,
                  device="cuda"):
+        if backend not in ("numpy", "pallas", "jax", "fused"):
+            raise ValueError(f"unknown micro backend: {backend!r}")
         self.sigma = sigma
         self.headroom = headroom
+        self.backend = backend
+        self.fused = fused
         self.device = resolve_device(device)
         self.reset()
 
     def reset(self) -> None:
+        self._loc: Dict[int, LocalityState] = {}
         self._dev_rings: Optional[DeviceRings] = None
         self._dev_region_sizes = None
+        self._uid = 0
 
     def locality_state(self, ridx: int) -> Optional[LocalityState]:
-        """The region's rings as host arrays (None before first use)."""
-        if self._dev_rings is None:
-            return None
-        return self._dev_rings.region_state(ridx,
-                                            self._dev_region_sizes[ridx])
+        """The region's rings as host arrays (None before first use).  For
+        the fused backend an export of the device rings (uids
+        synthesized)."""
+        if self._dev_rings is not None:
+            return self._dev_rings.region_state(
+                ridx, self._dev_region_sizes[ridx])
+        return self._loc.get(ridx)
+
+    def _state_for(self, ridx: int, n_servers: int,
+                   edim: int) -> LocalityState:
+        lstate = self._loc.get(ridx)
+        if lstate is None or lstate.n_servers != n_servers:
+            lstate = LocalityState.empty(n_servers, self.KEEP, max(edim, 1))
+        elif lstate.embed_dim < edim:
+            lstate = lstate.grown(edim)
+        self._loc[ridx] = lstate
+        return lstate
 
     def _ensure_dev_rings(self, n_regions: int, s_pad: int,
                           edim: int) -> DeviceRings:
@@ -119,15 +242,26 @@ class MicroAllocator:
                                 batch.deadline_slot[rows],
                                 region_of[rows]))
             sidx = rows[order]
-            embeds = batch.embeds[sidx]
-            norms = np.linalg.norm(embeds, axis=1)
-            out[sidx] = assign_scan_all(
-                self, obs, region_of[sidx],
-                mem_t=batch.mem_gb[sidx], work=work[order],
-                mids=batch.model_idx[sidx].astype(np.int16),
-                kind_ids=batch.kind_id[sidx], embeds=embeds,
-                # a zero row is TaskBatch's encoding of "no embedding"
-                has_embed=norms > 0.0, norms=norms)
+            out[sidx] = assign_scan_all(self, obs, region_of[sidx],
+                                        **_task_arrays(batch, sidx,
+                                                       work[order]))
+        return out
+
+    def assign_batch(self, obs, ridx: int, batch,
+                     idx: np.ndarray) -> np.ndarray:
+        """Assign rows ``idx`` of a ``TaskBatch`` to region ``ridx``;
+        returns the server-in-region per row of ``idx`` (-1 = buffer)."""
+        idx = np.asarray(idx)
+        if idx.size == 0:
+            return np.zeros(0, np.int32)
+        with obs_rt.span("micro.assign"):
+            work = batch.work_s[idx]
+            # greedy order: (deadline, model name, -work)
+            order = np.lexsort((-work, _MODEL_RANK[batch.model_idx[idx]],
+                                batch.deadline_slot[idx]))
+            out = np.full(idx.size, -1, np.int32)
+            out[order] = self._assign_core(
+                obs, ridx, **_task_arrays(batch, idx[order], work[order]))
         return out
 
     def _assign_core(self, obs, ridx: int, *, mem_t: np.ndarray,
@@ -135,10 +269,83 @@ class MicroAllocator:
                      kind_ids: np.ndarray, embeds: np.ndarray,
                      has_embed: np.ndarray,
                      norms: np.ndarray) -> np.ndarray:
-        """One region's pre-sorted tasks through the same fused greedy and
-        device rings; returns per-task server index (-1 = buffer)."""
-        self._dev_region_sizes = obs.state.region_sizes()
-        return assign_scan_all(
-            self, obs, np.full(len(work), ridx, np.int64), mem_t=mem_t,
-            work=work, mids=mids, kind_ids=kind_ids, embeds=embeds,
-            has_embed=has_embed, norms=norms)
+        """One region's pre-sorted tasks through the allocator's backend;
+        returns per-task server index within the region (-1 = buffer)."""
+        st = obs.state
+        sl = st.region_slice(ridx)
+        active = st.state[sl] == ACTIVE
+        n = len(work)
+        out = np.full(n, -1, np.int32)
+        if n == 0 or not active.any():
+            return out
+        arrays = dict(mem_t=mem_t, work=work, mids=mids, kind_ids=kind_ids,
+                      embeds=embeds, has_embed=has_embed, norms=norms)
+        if self.backend == "fused":
+            # the per-region API on the fused greedy and device rings
+            self._dev_region_sizes = st.region_sizes()
+            return assign_scan_all(self, obs, np.full(n, ridx, np.int64),
+                                   **arrays)
+        lstate = self._state_for(ridx, sl.stop - sl.start, embeds.shape[1])
+        if self.backend == "jax":
+            return assign_scan(self, obs, ridx, lstate, **arrays)
+        return self._walk(obs, sl, lstate, active, **arrays)
+
+    def _walk(self, obs, sl: slice, lstate: LocalityState,
+              active: np.ndarray, *, mem_t, work, mids, kind_ids, embeds,
+              has_embed, norms) -> np.ndarray:
+        """The host greedy walk (``backend="numpy"|"pallas"``): one
+        (N, S) static matrix, then tasks urgency-first, each placed on its
+        best eligible server, whose projected queue, ring and score column
+        are updated before the next task."""
+        st = obs.state
+        slot_s = obs.slot_seconds
+        n = len(work)
+        out = np.full(n, -1, np.int32)
+        mem_s = st.mem_gb[sl]
+        speed = np.maximum(st.tflops[sl] / 112.0, 0.1)
+        cur = st.current_model[sl]
+
+        tf = task_feature_arrays(kind_ids, mem_t)
+        sf = server_feature_matrix(st, sl, slot_s)
+        loc_cache: dict = {}
+        loc0 = np.stack([lstate.column(
+            i, mids, embeds, norms, has_embed, obs.t, cache=loc_cache)
+            for i in range(sl.stop - sl.start)], axis=1)
+        hwl = hw_load_matrix(tf, sf, backend=self.backend,
+                             device=self.device)
+        base = hwl + W_LOC * loc0
+
+        warm_hit = st.warm_hit_matrix(mids, sl)
+        warm = np.where(cur[None, :] == mids[:, None], 1.0,
+                        np.where(warm_hit, 0.4, 0.0))
+        static = base + W_WARM * warm
+        exec_pen = 0.3 * (work[:, None] / speed[None, :]) / slot_s
+
+        mem_ok = mem_s[None, :] >= mem_t[:, None]
+        proj = st.queue_s[sl].astype(np.float64)
+        for i in range(n):
+            eligible = active & mem_ok[i] & (proj <= 16.0 * slot_s)
+            if not eligible.any():
+                continue                       # buffer (§V-C2 buffering)
+            # projected wait penalty, superlinear so warm-model stickiness
+            # never holds a backlogged server
+            q_slots = proj / slot_s
+            sc = (static[i] - (0.8 * q_slots + 0.4 * q_slots * q_slots)
+                  ) - exec_pen[i]
+            sc = np.where(eligible, sc, -np.inf)
+            best = int(np.argmax(sc))
+            g = sl.start + best
+            proj[best] += work[i] / speed[best] \
+                + st.switch_cost(g, int(mids[i]))
+            self._uid += 1
+            lstate.note(best, int(mids[i]),
+                        embeds[i] if has_embed[i] else None,
+                        obs.t, self._uid)
+            # refresh this server's column so later tasks see the
+            # just-placed history
+            new_col = lstate.column(best, mids, embeds, norms, has_embed,
+                                    obs.t, cache=loc_cache)
+            static[:, best] = (hwl[:, best] + W_LOC * new_col) \
+                + W_WARM * warm[:, best]
+            out[i] = best
+        return out

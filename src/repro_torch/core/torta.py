@@ -1,14 +1,18 @@
 """TORTA scheduler — Algorithm 1 end to end (port of ``repro/core/torta.py``,
-the batch-native fused path with per-task region sampling).
+the batch-native path with per-task region sampling).
 
 Phase 1 (macro): EMA forecast, Sinkhorn OT on the device, smoothed A_t,
 then a sampled region per task from the host RNG (the reference's exact
-draws).  Phase 2 (micro): Eq-6 activation targets and ONE multi-region
-greedy per slot on the device.
+draws).  Phase 2 (micro): Eq-6 activation targets, then ONE multi-region
+greedy per slot on the device (``micro_backend="fused"``, the port's
+default), or one greedy per region (``"jax"``, optionally with the fused
+score kernel) or the host walk over a kernel-made score matrix
+(``"pallas"``, what ``use_compat_kernel=True`` selects).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -25,18 +29,28 @@ class TortaScheduler:
     eta: float = 0.35
     sigma: float = 2.0
     headroom: float = 2.5
-    # the fused multi-region greedy is the only micro route ported
-    micro_backend: str = "fused"
+    # Phase-2 hw+load matrix from the compat_score kernel (host walk)
+    use_compat_kernel: bool = False
+    # Phase-2 micro backend: "fused" (one multi-region greedy per slot),
+    # "jax" (the greedy one region at a time), "pallas" (host walk over
+    # the compat_score kernel's matrix) or "numpy" (the same walk in
+    # float64).  None = "pallas" with use_compat_kernel, else "fused"
+    # (the reference's None means "numpy").
+    micro_backend: Optional[str] = None
+    # with micro_backend="jax": the static score from the fused_score
+    # kernel (float32) instead of the float64 in-kernel row
+    micro_fused_kernel: bool = False
     device: object = "cuda"
     name: str = "TORTA"
 
     def __post_init__(self):
-        if self.micro_backend != "fused":
-            raise ValueError(f"unknown micro backend {self.micro_backend!r}: "
-                             "the port runs the fused greedy only")
+        backend = self.micro_backend or (
+            "pallas" if self.use_compat_kernel else "fused")
         self.macro = MacroAllocator(self.n_regions, eta=self.eta,
                                     device=self.device)
         self.micro = MicroAllocator(sigma=self.sigma, headroom=self.headroom,
+                                    backend=backend,
+                                    fused=self.micro_fused_kernel,
                                     device=self.device)
         self.device = self.macro.device
         self.reset()
@@ -88,7 +102,15 @@ class TortaScheduler:
 
         pred_inbound = self._pred_inbound(obs, a, demand, self._predicted)
         activation = self.micro.activation_targets(obs, pred_inbound)
-        server_of = self.micro.assign_batch_all(obs, batch, region_of)
+        if self.micro.backend == "fused":
+            server_of = self.micro.assign_batch_all(obs, batch, region_of)
+        else:
+            server_of = np.full(n, -1, np.int32)
+            for j in range(r):
+                idx = np.flatnonzero(region_of == j)
+                if idx.size:
+                    server_of[idx] = self.micro.assign_batch(obs, j, batch,
+                                                             idx)
         return BatchDecision(region=np.where(server_of >= 0, region_of, -1),
                              server=server_of, activation=activation)
 

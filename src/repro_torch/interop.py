@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.micro_state import LocalityState
 from repro_torch.core.micro_torch import DeviceRings
 from repro_torch.sim.state import ClusterState
 
@@ -48,3 +49,19 @@ def rings_from_arrays(mids: np.ndarray, slots: np.ndarray,
                        slots=dev(slots, torch.int32),
                        embeds=dev(embeds, torch.float32),
                        norms=dev(norms, torch.float32))
+
+
+def locality_state_from_arrays(mids: np.ndarray, slots: np.ndarray,
+                               embeds: np.ndarray, norms: np.ndarray,
+                               uid: np.ndarray,
+                               count: np.ndarray) -> LocalityState:
+    """One region's host ``LocalityState`` (the per-region routes' rings)
+    from its (S, K[, E]) ring arrays, copied in the port's dtypes.  Host
+    arrays only: the ``jax`` route uploads them per call."""
+    return LocalityState(
+        mids=np.array(mids, dtype=np.int32),
+        slots=np.array(slots, dtype=np.int32),
+        embeds=np.array(embeds, dtype=np.float32),
+        norms=np.array(norms, dtype=np.float32),
+        uid=np.array(uid, dtype=np.int64),
+        count=np.array(count, dtype=np.int32))

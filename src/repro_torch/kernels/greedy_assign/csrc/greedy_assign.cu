@@ -8,6 +8,14 @@
 // projected queue and writes the task at the head of its 4-entry
 // locality ring, so later tasks see it.
 //
+// A second instantiation (kStatic) serves the per-region scan with the
+// fused score kernel, src/repro/core/micro_jax.py:158 _scan_assign with
+// fused=True: there the static Eq 7-9 part, warm bonus included, comes
+// precomputed as an (R, N_pad, S_pad) float64 operand, and a server scores
+// (static[r, i, s] + w_loc * loc) + 0.0 in place of
+// (w_hw * hw + w_load * load + w_loc * loc) + w_warm * warm.  Eligibility,
+// penalties, the switch cost and both pushes are the same code.
+//
 // What bounds it on the H100: latency.  The task loop is sequential (each
 // choice changes the projected queues and rings the next task is scored
 // against), so a region costs N steps, each a block-wide argmax; the
@@ -73,6 +81,7 @@ struct Params {
   const uint8_t* t_has;
   const int64_t* n_real;          // (R,) tasks per region
   const double* decay;            // (41,) exp(LOC_DECAY * age)
+  const double* static_score;     // (R, N_pad, S_pad) or null
   double w_hw, w_load, w_loc, w_warm, w_model, w_embed;
   double warm_hit_s, model_switch_s;
   int* out;                       // (R, N_pad) server-in-region or -1
@@ -82,6 +91,7 @@ __device__ __forceinline__ bool better(double a, int ia, double b, int ib) {
   return a > b || (a == b && ia < ib);
 }
 
+template <bool kStatic>
 __global__ void __launch_bounds__(1024) greedy_kernel(const Params p) {
   extern __shared__ __align__(8) unsigned char smem[];
   __shared__ double red_score[2][32];
@@ -127,18 +137,6 @@ __global__ void __launch_bounds__(1024) greedy_kernel(const Params p) {
       if (!(__ldg(&p.active[g]) != 0 && __ldg(&p.mem_s[g]) >= mem_i &&
             proj[s] <= cap))
         continue;
-      // static Eq 7-9 row
-      const double c = fmin(1.0, __ldg(&p.tflops[g]) / demand_i);
-      const double m = fmin(1.0, __ldg(&p.mem_s[g]) / fmax(mem_i, 1e-9));
-      const double tm = __ldg(&p.kind_s[g]) == kind_i ? 1.0 : 0.5;
-      const double base = p.w_hw * (c * m * tm) + p.w_load * __ldg(&p.load[g]);
-      double warm = 0.0;
-      if (__ldg(&p.cur_model[g]) == mid_i) {
-        warm = 1.0;
-      } else {
-        for (int w = 0; w < W; ++w)
-          if (__ldg(&p.warm_srv[g * W + w]) == mid_i) warm = 0.4;
-      }
       // Eq-10 locality against the ring, newest entry first
       double loc = 0.0;
       for (int k = 0; k < kKeep; ++k) {
@@ -156,7 +154,25 @@ __global__ void __launch_bounds__(1024) greedy_kernel(const Params p) {
         }
         loc = k == 0 ? contrib : loc + contrib;
       }
-      const double stat = (base + p.w_loc * loc) + p.w_warm * warm;
+      double stat;
+      if (kStatic) {
+        stat = (__ldg(&p.static_score[ti * S + s]) + p.w_loc * loc) + 0.0;
+      } else {
+        // static Eq 7-9 row and warm bonus
+        const double c = fmin(1.0, __ldg(&p.tflops[g]) / demand_i);
+        const double m = fmin(1.0, __ldg(&p.mem_s[g]) / fmax(mem_i, 1e-9));
+        const double tm = __ldg(&p.kind_s[g]) == kind_i ? 1.0 : 0.5;
+        const double base =
+            p.w_hw * (c * m * tm) + p.w_load * __ldg(&p.load[g]);
+        double warm = 0.0;
+        if (__ldg(&p.cur_model[g]) == mid_i) {
+          warm = 1.0;
+        } else {
+          for (int w = 0; w < W; ++w)
+            if (__ldg(&p.warm_srv[g * W + w]) == mid_i) warm = 0.4;
+        }
+        stat = (base + p.w_loc * loc) + p.w_warm * warm;
+      }
       const double q = proj[s] / p.slot_s;
       const double sc = (stat - (0.8 * q + 0.4 * q * q))
                         - (0.3 * (work_i / __ldg(&p.speed[g])) / p.slot_s);
@@ -228,6 +244,23 @@ __global__ void __launch_bounds__(1024) greedy_kernel(const Params p) {
   }
 }
 
+template <bool kStatic>
+cudaError_t launch(const Params& p, size_t smem, int threads,
+                   cudaStream_t stream) {
+  // raise the kernel's dynamic shared-memory limit only when a launch
+  // needs more than any earlier one (the attribute is per function)
+  static size_t smem_allowed = 0;
+  if (smem > smem_allowed) {
+    cudaError_t err = cudaFuncSetAttribute(
+        greedy_kernel<kStatic>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_allowed = smem;
+  }
+  greedy_kernel<kStatic><<<p.n_regions, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -241,7 +274,8 @@ size_t greedy_assign_smem_bytes(int s_pad, int embed_dim) {
 
 // One launch for the whole slot: grid = n_regions blocks.  Pointers are
 // device pointers to contiguous tensors; the rings are updated in place.
-// Returns the launch's cudaError_t.
+// static_score null scores from the server and task operands, non-null
+// from that (R, N_pad, S_pad) matrix.  Returns the launch's cudaError_t.
 int greedy_assign_launch(
     int n_regions, int s_pad, int n_pad, int embed_dim, int warm_slots, int t,
     int empty, int max_age, double slot_s, const double* tflops, const double* mem_s, const int* kind_s,
@@ -251,7 +285,8 @@ int greedy_assign_launch(
     const int* t_mids, const int* t_kinds, const double* t_mem,
     const double* t_work, const double* t_demand, const float* t_emb,
     const float* t_norms, const float* t_note, const uint8_t* t_has,
-    const int64_t* n_real, const double* decay, double w_hw, double w_load,
+    const int64_t* n_real, const double* decay, const double* static_score,
+    double w_hw, double w_load,
     double w_loc, double w_warm, double w_model, double w_embed,
     double warm_hit_s, double model_switch_s, int* out, void* stream) {
   if (n_regions <= 0) return 0;
@@ -261,21 +296,14 @@ int greedy_assign_launch(
            tflops, mem_s, kind_s, load, cur_model, warm_srv, switch_scale,
            active, speed, proj0, l_mids, l_slots, l_emb, l_nrm, t_mids,
            t_kinds, t_mem, t_work, t_demand, t_emb, t_norms, t_note, t_has,
-           n_real, decay, w_hw, w_load, w_loc, w_warm, w_model, w_embed,
+           n_real, decay, static_score, w_hw, w_load, w_loc, w_warm, w_model,
+           w_embed,
            warm_hit_s, model_switch_s, out};
   const size_t smem = greedy_assign_smem_bytes(s_pad, embed_dim);
-  // raise the kernel's dynamic shared-memory limit only when a launch
-  // needs more than any earlier one (the attribute is per function)
-  static size_t smem_allowed = 0;
-  if (smem > smem_allowed) {
-    cudaError_t err = cudaFuncSetAttribute(
-        greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_allowed = smem;
-  }
   const int threads = s_pad >= 1024 ? 1024 : ((s_pad + 31) / 32) * 32;
-  greedy_kernel<<<n_regions, threads, smem, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(static_score ? launch<true>(p, smem, threads, st)
+                            : launch<false>(p, smem, threads, st));
 }
 
 }  // extern "C"

@@ -6,7 +6,8 @@ version (``ref.py``) take the very same tensors, so the pre-scan values
 (load, demand, note norms, speed, the decay table) are computed once, in
 that wrapper, for both.  A CUDA operand set launches the kernel; a CPU
 one runs the plain version.  ``greedy_assign.launches`` counts kernel
-launches.
+launches.  An optional ``static`` operand selects the kernel's static
+variant (the per-region route with the fused score kernel).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import ctypes
 import dataclasses
 import functools
 import pathlib
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -80,6 +81,9 @@ class GreedyInputs:
     t: int                      # slot index (ring timestamp)
     slot_s: float
     consts: ScoreConsts
+    # (R, N_pad, S_pad) float64 Eq 7-9 score with the warm bonus; when
+    # given, a server scores (static + w_loc * loc) + 0.0 instead
+    static: Optional[torch.Tensor] = None
 
 
 Rings = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -93,7 +97,7 @@ def _lib():
     lib = _build.load(SOURCE)
     fn = lib.greedy_assign_launch
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fn.argtypes = ([i32] * 8 + [f64] + [ptr] * 25 + [f64] * 8
+    fn.argtypes = ([i32] * 8 + [f64] + [ptr] * 26 + [f64] * 8
                    + [ptr, ptr])
     fn.restype = ctypes.c_int
     smem = lib.greedy_assign_smem_bytes
@@ -137,6 +141,13 @@ def _check(x: GreedyInputs) -> None:
     if keep != KEEP:
         raise ValueError(f"greedy_assign: ring depth {keep}, kernel is "
                          f"built for {KEEP}")
+    st = x.static
+    if st is not None and (st.dtype != torch.float64 or st.device != dev
+                           or tuple(st.shape) != (r, n_pad, s_pad)):
+        raise ValueError(
+            f"greedy_assign: static must be {torch.float64} "
+            f"{(r, n_pad, s_pad)} on {dev}, got {st.dtype} "
+            f"{tuple(st.shape)} on {st.device}")
 
 
 def greedy_assign(x: GreedyInputs) -> Tuple[torch.Tensor, Rings]:
@@ -159,7 +170,8 @@ def greedy_assign(x: GreedyInputs) -> Tuple[torch.Tensor, Rings]:
             f"{smem_bytes(s_pad, e)} B of shared memory per region, over "
             f"the {SMEM_LIMIT} B a block may use")
     x = dataclasses.replace(x, **{
-        name: getattr(x, name).contiguous() for name in _DTYPES})
+        name: getattr(x, name).contiguous() for name in _DTYPES},
+        static=None if x.static is None else x.static.contiguous())
     rings = tuple(a.clone() for a in (x.l_mids, x.l_slots, x.l_emb, x.l_nrm))
     out = torch.empty((r, n_pad), dtype=torch.int32, device=dev)
     c = x.consts
@@ -173,7 +185,9 @@ def greedy_assign(x: GreedyInputs) -> Tuple[torch.Tensor, Rings]:
         x.t_mids.data_ptr(), x.t_kinds.data_ptr(), x.t_mem.data_ptr(),
         x.t_work.data_ptr(), x.t_demand.data_ptr(), x.t_emb.data_ptr(),
         x.t_norms.data_ptr(), x.t_note.data_ptr(), x.t_has.data_ptr(),
-        x.n_real.data_ptr(), x.decay.data_ptr(), *(float(v) for v in c),
+        x.n_real.data_ptr(), x.decay.data_ptr(),
+        None if x.static is None else x.static.data_ptr(),
+        *(float(v) for v in c),
         out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(

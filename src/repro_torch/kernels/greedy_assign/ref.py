@@ -5,8 +5,10 @@ step, in the op order of the reference's scan body
 (``repro/core/micro_jax.py:_scan_assign_multi_impl``) and of the CUDA
 kernel: float64 scores, the f32 embedding dot as a left-to-right sum,
 ring entries summed newest first, the Eq-10 decay from the operand
-table, first-index argmax.  The CPU path of ``ops.greedy_assign`` and the
-yardstick the kernel is held to (bitwise) on the card.
+table, first-index argmax.  With a ``static`` operand the Eq 7-9 part and
+the warm bonus come from it, as in the kernel's static variant.  The CPU
+path of ``ops.greedy_assign`` and the yardstick the kernel is held to
+(bitwise) on the card.
 """
 from __future__ import annotations
 
@@ -45,17 +47,6 @@ def greedy_assign_ref(x: "GreedyInputs"):
         norm_i = x.t_norms[:, i]
         has_i = x.t_has[:, i]
 
-        # static Eq 7-9 row
-        cc = torch.clamp(x.tflops / x.t_demand[:, i, None], max=1.0)
-        m = torch.clamp(x.mem_s / torch.clamp(mem_i, min=1e-9)[:, None],
-                        max=1.0)
-        tm = torch.where(x.kind_s == kind_i[:, None], one, half)
-        base = c.w_hw * (cc * m * tm) + c.w_load * x.load
-        warm = torch.where(
-            x.cur_model == mid_i[:, None], one,
-            torch.where((x.warm_srv == mid_i[:, None, None]).any(-1),
-                        warm_part, zero))
-
         # Eq-10 locality of this task vs every server's ring
         dots = le[..., 0] * emb_i[:, None, None, 0]           # f32
         for e in range(1, e_dim):
@@ -72,7 +63,20 @@ def greedy_assign_ref(x: "GreedyInputs"):
         for k in range(1, keep_k):
             loc = loc + contrib[..., k]
 
-        static = (base + c.w_loc * loc) + c.w_warm * warm
+        if x.static is not None:
+            static = (x.static[:, i] + c.w_loc * loc) + 0.0
+        else:
+            # static Eq 7-9 row and warm bonus
+            cc = torch.clamp(x.tflops / x.t_demand[:, i, None], max=1.0)
+            m = torch.clamp(x.mem_s / torch.clamp(mem_i, min=1e-9)[:, None],
+                            max=1.0)
+            tm = torch.where(x.kind_s == kind_i[:, None], one, half)
+            base = c.w_hw * (cc * m * tm) + c.w_load * x.load
+            warm = torch.where(
+                x.cur_model == mid_i[:, None], one,
+                torch.where((x.warm_srv == mid_i[:, None, None]).any(-1),
+                            warm_part, zero))
+            static = (base + c.w_loc * loc) + c.w_warm * warm
         eligible = (x.active & (x.mem_s >= mem_i[:, None]) & (proj <= cap)
                     & (x.n_real > i)[:, None])
         any_e = eligible.any(dim=1)

@@ -147,6 +147,13 @@ class ClusterState:
             return scale * _WARM_HIT_S
         return scale * MODEL_SWITCH_S
 
+    def warm_hit_matrix(self, mids: np.ndarray,
+                        sl: Optional[slice] = None) -> np.ndarray:
+        """(N, S) bool: model ``mids[i]`` is in server ``j``'s warm cache
+        (optionally restricted to a region slice)."""
+        wm = self.warm_models if sl is None else self.warm_models[sl]
+        return (wm[None, :, :] == mids[:, None, None]).any(axis=2)
+
     def note_model(self, g: int, mid: int) -> None:
         """MRU update: the current model is also the head of the warm
         list."""

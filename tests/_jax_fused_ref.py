@@ -8,6 +8,14 @@ in its own interpreter, runs one case and writes the results to an
 
     python tests/_jax_fused_ref.py greedy R SPR SEED OUT.npz
     python tests/_jax_fused_ref.py slice CASE OUT.npz
+    python tests/_jax_fused_ref.py scan R SPR SEED FUSED OUT.npz
+    python tests/_jax_fused_ref.py route CASE BACKEND FUSED SLOTS OUT.npz
+
+``scan`` runs the per-region micro route (``MicroAllocator(backend=
+"jax", fused=FUSED)``) region by region over the randomized sweep and also
+saves each ``fused_score`` matrix it used; ``route`` runs
+``TortaScheduler(micro_backend=BACKEND, micro_fused_kernel=FUSED)`` on
+``Engine(step_backend="numpy")``.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ if not hasattr(jax.experimental, "enable_x64"):
 from _torch_port import (SLICE_SLOTS, Recorder, ref_failures, ref_obs,  # noqa: E402
                          slice_case, sweep_slots)
 
+import repro.kernels.compat_score as compat_score  # noqa: E402
 from repro.core.micro import MicroAllocator  # noqa: E402
 from repro.core.torta import TortaScheduler  # noqa: E402
 from repro.sim import Engine  # noqa: E402
@@ -42,14 +51,46 @@ def greedy(r: int, spr: int, seed: int) -> dict:
     return out
 
 
-def slice_run(case: str) -> dict:
+def scan(r: int, spr: int, seed: int, fused: int) -> dict:
+    alloc = MicroAllocator(backend="jax", fused=bool(fused))
+    statics = []
+    kernel = compat_score.fused_score
+
+    def record(*args, **kw):
+        out = kernel(*args, **kw)
+        statics.append(np.asarray(out))
+        return out
+    compat_score.fused_score = record
+    out = {}
+    for t, cs, batch, region_of in sweep_slots(r, spr, seed):
+        obs = ref_obs(cs, t)
+        for j in range(r):
+            idx = np.flatnonzero(region_of == j)
+            if idx.size:
+                out[f"out_{t}_{j}"] = alloc.assign_batch(obs, j, batch, idx)
+    for j in range(r):
+        st = alloc.locality_state(j)
+        if st is not None:
+            for name in ("mids", "slots", "embeds", "norms", "uid", "count"):
+                out[f"{name}_{j}"] = getattr(st, name)
+    for k, a in enumerate(statics):
+        out[f"static_{k}"] = a
+    return out
+
+
+def slice_run(case: str, backend: str = "fused", fused: str = "0",
+              slots: str = str(SLICE_SLOTS)) -> dict:
+    """The fused slot on the jitted engine step, or another micro route on
+    the numpy engine step."""
     c = slice_case(case)
     rec = Recorder(TortaScheduler(c.topo.n_regions, seed=0,
-                                  micro_backend="fused",
+                                  micro_backend=backend,
+                                  micro_fused_kernel=bool(int(fused)),
                                   use_sinkhorn_kernel=True))
     summary = Engine(c.topo, c.cs.copy(), c.workload, rec, seed=0,
                      failures=ref_failures(c.failures),
-                     step_backend="jax").run(SLICE_SLOTS).summary()
+                     step_backend="jax" if backend == "fused" else "numpy"
+                     ).run(int(slots)).summary()
     out = {"summary_keys": np.array(sorted(summary)),
            "summary_vals": np.array([summary[k] for k in sorted(summary)],
                                     np.float64)}
@@ -63,7 +104,9 @@ def main(argv) -> None:
     mode, *args, path = argv
     if mode == "greedy":
         result = greedy(*(int(a) for a in args))
-    elif mode == "slice":
+    elif mode == "scan":
+        result = scan(*(int(a) for a in args))
+    elif mode in ("slice", "route"):
         result = slice_run(*args)
     else:
         raise SystemExit(f"unknown mode {mode!r}")

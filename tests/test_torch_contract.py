@@ -13,11 +13,14 @@ import torch
 
 import repro.core.env as ref_env
 import repro.core.micro as ref_micro
+import repro.kernels.compat_score.fused as ref_fused
+import repro.kernels.compat_score.kernel as ref_compat
 import repro.sim.cluster as ref_cluster
 import repro.sim.state as ref_state
 import repro.workload.batch as ref_batch
 import repro_torch.core.micro as micro
 import repro_torch.core.predictor as predictor
+import repro_torch.kernels.compat_score.ref as compat
 import repro_torch.sim.cluster as cluster
 import repro_torch.sim.state as state
 import repro_torch.workload.batch as batch
@@ -86,6 +89,13 @@ def _engine_args():
 
 ENTRY_POINTS = {
     "TortaScheduler": lambda: TortaScheduler(3),
+    "TortaScheduler(jax)": lambda: TortaScheduler(
+        3, micro_backend="jax", micro_fused_kernel=True),
+    "TortaScheduler(pallas)": lambda: TortaScheduler(3,
+                                                     use_compat_kernel=True),
+    "MicroAllocator(jax)": lambda: MicroAllocator(backend="jax"),
+    "hw_load_matrix(pallas)": lambda: micro.hw_load_matrix(
+        np.ones((2, 8)), np.ones((3, 8)), backend="pallas"),
     "MacroAllocator": lambda: MacroAllocator(3),
     "MicroAllocator": lambda: MicroAllocator(),
     "Engine": lambda: Engine(*_engine_args(),
@@ -118,11 +128,15 @@ CONSTANTS = [
     (state, ref_state, "WARM_SLOTS"), (state, ref_state, "KINDS"),
     (predictor, ref_env, "K_HIST"), (batch, ref_batch, "EMBED_DIM"),
     (micro.MicroAllocator, ref_micro.MicroAllocator, "KEEP"),
+    (micro, ref_micro, "KERNEL_LOAD_CAP"),
+    (compat, ref_compat, "W_HW"), (compat, ref_compat, "W_LOAD"),
+    (compat, ref_compat, "W_LOC"), (compat, ref_fused, "W_WARM"),
 ]
 
 
 @pytest.mark.parametrize("port,ref,name", CONSTANTS,
-                         ids=[c[2] for c in CONSTANTS])
+                         ids=[f"compat.{c[2]}" if c[0] is compat else c[2]
+                              for c in CONSTANTS])
 def test_copied_constant_equals_reference(port, ref, name):
     got, want = getattr(port, name), getattr(ref, name)
     if isinstance(want, np.ndarray):

@@ -2,7 +2,9 @@
 ``greedy_assign`` kernel, on the CPU) against the JAX package: the numpy
 oracle ``MicroAllocator(backend="numpy")._assign_core`` region by region,
 and the fused JAX scan itself in a separate process.  Assignments and
-ring contents must be identical."""
+ring contents must be identical.  The kernel's static-operand variant
+(the per-region route with the fused score kernel) is held to the JAX
+per-region scan the same way, given the same static matrices."""
 import numpy as np
 import pytest
 import torch
@@ -13,6 +15,7 @@ from repro.core.micro import MicroAllocator as RefMicro
 from repro.sim.state import OFF
 from repro.workload import make_source
 from repro_torch.core.micro import MicroAllocator
+from repro_torch.core import micro_torch
 from repro_torch.core.micro_torch import (bucket, note_norms,
                                           server_pad_map)
 from repro_torch.interop import rings_from_arrays
@@ -86,6 +89,45 @@ def test_fused_greedy_matches_fused_jax_scan(tmp_path):
                                           err_msg=f"region {j} {name}")
         np.testing.assert_allclose(got.norms, ref[f"norms_{j}"],
                                    rtol=2e-7, atol=0)
+
+
+def test_static_variant_matches_jax_per_region_scan(tmp_path, monkeypatch):
+    """``micro_jax.assign_scan`` with ``fused=True``, run region by region
+    over a sweep in a separate process, saves each static matrix its
+    ``fused_score`` gave; fed the same matrices, the port's per-region
+    route (the greedy's static variant, plain version) assigns
+    identically and ends with equal rings, uids included."""
+    r, spr, seed = 5, 17, 2024
+    ref = run_jax_fused(tmp_path, "scan", str(r), str(spr), str(seed), "1")
+    statics = iter(sorted((k for k in ref if k.startswith("static_")),
+                          key=lambda k: int(k.split("_")[1])))
+
+    def recorded(tf, sf, task_mids, server_models, locality=None):
+        got = torch.from_numpy(ref[next(statics)])
+        assert got.shape == (tf.shape[0], sf.shape[0])
+        return got
+    monkeypatch.setattr(micro_torch, "fused_score", recorded)
+    port = MicroAllocator(backend="jax", fused=True, device="cpu")
+    n_calls = 0
+    for t, cs, batch, region_of in sweep_slots(r, spr, seed):
+        obs = port_obs(ref_obs(cs, t))
+        for j in range(r):
+            idx = np.flatnonzero(region_of == j)
+            if idx.size:
+                got = port.assign_batch(obs, j, port_batch(batch), idx)
+                np.testing.assert_array_equal(
+                    got, ref[f"out_{t}_{j}"], err_msg=f"slot {t} region {j}")
+                n_calls += 1
+    assert next(statics, None) is None and n_calls > 0
+    for j in range(r):
+        got = port.locality_state(j)
+        if f"mids_{j}" not in ref:
+            assert got is None, f"region {j}"
+            continue
+        for name in RING_FIELDS + ("uid",):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          ref[f"{name}_{j}"],
+                                          err_msg=f"region {j} {name}")
 
 
 def test_single_region_assign_core_matches_oracle():
