@@ -1,0 +1,177 @@
+"""Architecture registry of the port: a copy of the reference's
+``configs`` package (the port imports nothing of it).
+
+Each architecture has one module ``repro_torch/configs/<id>.py`` exporting
+``CONFIG: ArchConfig`` with the published dimensions (source cited in the
+module docstring).  ``get_config(name)`` returns it; ``reduced(cfg)``
+returns the small variant of the same family that the CPU tests run.
+``tests/test_torch_contract.py`` pins every config, field by field, to
+the reference's.
+"""
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass, replace
+from typing import Optional, Sequence, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    # fraction of extra buffer per expert in sort-based dispatch
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    # load-balance aux loss weight (Switch/Mixtral style)
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: Optional[int] = None  # default: ceil(d_model/16)
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Encoder stack for enc-dec models (whisper). Frontend is stubbed:
+    inputs are precomputed conv/mel frame embeddings of shape (B, src_len, d)."""
+    num_layers: int
+    src_len: int = 1500  # whisper: 30s audio -> 1500 frames after conv stride 2
+
+
+@dataclass(frozen=True)
+class VisionStubConfig:
+    """VLM frontend stub: precomputed SigLIP patch embeddings (B, num_patches, d)."""
+    num_patches: int = 256
+    embed_dim: int = 1152  # SigLIP-So400m width; projected to d_model
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    arch_type: str  # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int          # 0 for attention-free
+    num_kv_heads: int
+    d_ff: int               # dense-MLP hidden (0 if none)
+    vocab: int
+    head_dim: Optional[int] = None  # default d_model // num_heads
+    # layer pattern: for hybrids, a repeating period of block kinds.
+    # kinds: "attn" | "mamba". MoE placement handled by moe_every.
+    layer_period: Tuple[str, ...] = ("attn",)
+    moe: Optional[MoEConfig] = None
+    moe_every: int = 1       # apply MoE FFN on layers where (idx % moe_every == moe_offset)
+    moe_offset: int = 0
+    ssm: Optional[SSMConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    vision: Optional[VisionStubConfig] = None
+    sliding_window: Optional[int] = None   # tokens; None = full attention
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    norm_kind: str = "rmsnorm"  # rmsnorm | layernorm
+    act: str = "silu"           # silu (swiglu) | gelu (plain mlp)
+    tie_embeddings: bool = False
+    max_position: int = 1 << 20
+    source: str = ""            # citation
+
+    @property
+    def hd(self) -> int:
+        if self.head_dim is not None:
+            return self.head_dim
+        return self.d_model // max(self.num_heads, 1)
+
+    @property
+    def is_attention_free(self) -> bool:
+        return all(k == "mamba" for k in self.layer_period)
+
+    @property
+    def has_mamba(self) -> bool:
+        return any(k == "mamba" for k in self.layer_period)
+
+    @property
+    def subquadratic(self) -> bool:
+        """True if long-context decode is natively sub-quadratic in memory:
+        attention-free, or every attn layer has a sliding window."""
+        if self.is_attention_free:
+            return True
+        return self.sliding_window is not None
+
+    def block_kind(self, idx: int) -> str:
+        return self.layer_period[idx % len(self.layer_period)]
+
+    def layer_uses_moe(self, idx: int) -> bool:
+        return self.moe is not None and (idx % self.moe_every == self.moe_offset)
+
+
+ARCH_IDS = [
+    "mixtral-8x7b",
+    "granite-20b",
+    "whisper-small",
+    "falcon-mamba-7b",
+    "llama3-8b",
+    "qwen3-moe-235b-a22b",
+    "paligemma-3b",
+    "tinyllama-1.1b",
+    "qwen2.5-3b",
+    "jamba-v0.1-52b",
+]
+
+_MODULE_FOR = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in _MODULE_FOR:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULE_FOR[name]}")
+    return mod.CONFIG
+
+
+def list_archs() -> Sequence[str]:
+    return list(ARCH_IDS)
+
+
+def reduced(cfg: ArchConfig, *, layers: int = 2, d_model: int = 256,
+            heads: int = 4, vocab: int = 512) -> ArchConfig:
+    """Reduced variant of the same family for CPU smoke tests."""
+    kv = max(1, min(cfg.num_kv_heads, heads) if cfg.num_kv_heads else 0)
+    if cfg.num_heads == 0:
+        heads, kv = 0, 0
+    moe = None
+    if cfg.moe is not None:
+        moe = replace(cfg.moe, num_experts=min(4, cfg.moe.num_experts),
+                      top_k=min(2, cfg.moe.top_k), d_ff_expert=2 * d_model)
+    ssm = cfg.ssm
+    if ssm is not None:
+        ssm = replace(ssm, d_state=8)
+    enc = None
+    if cfg.encoder is not None:
+        enc = replace(cfg.encoder, num_layers=min(2, cfg.encoder.num_layers),
+                      src_len=16)
+    vis = None
+    if cfg.vision is not None:
+        vis = replace(cfg.vision, num_patches=8, embed_dim=64)
+    # keep the layer period structure but cap total layers at one full period
+    period = cfg.layer_period
+    n_layers = max(layers, len(period)) if len(period) > 1 else layers
+    return replace(
+        cfg,
+        name=cfg.name + "-reduced",
+        num_layers=n_layers,
+        d_model=d_model,
+        num_heads=heads,
+        num_kv_heads=kv,
+        d_ff=2 * d_model if cfg.d_ff else 0,
+        vocab=vocab,
+        head_dim=None,
+        moe=moe,
+        ssm=ssm,
+        encoder=enc,
+        vision=vis,
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else None,
+    )

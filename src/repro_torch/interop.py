@@ -12,6 +12,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.micro_state import LocalityState
 from repro_torch.core.micro_torch import DeviceRings
+from repro_torch.models.model import param_descs
+from repro_torch.models.params import check_tree
 from repro_torch.sim.state import ClusterState
 
 _DTYPES = {"region_ptr": np.int64, "power_price": np.float64,
@@ -65,3 +67,20 @@ def locality_state_from_arrays(mids: np.ndarray, slots: np.ndarray,
         norms=np.array(norms, dtype=np.float32),
         uid=np.array(uid, dtype=np.int64),
         count=np.array(count, dtype=np.int32))
+
+
+def model_params_from_arrays(cfg, tree, *, device="cuda") -> dict:
+    """The port ``Model``'s parameters from a weight tree given as nested
+    dicts of numpy arrays, named and shaped as the reference's
+    ``Model.init`` pytree (groups stacked on a leading dim): every leaf
+    copied to ``device`` as float32.  Raises when a key or a shape
+    differs from ``models.model.param_descs(cfg)``."""
+    device = resolve_device(device)
+    check_tree(param_descs(cfg), tree)
+
+    def convert(t):
+        if isinstance(t, dict):
+            return {k: convert(v) for k, v in t.items()}
+        return torch.tensor(np.asarray(t), dtype=torch.float32,
+                            device=device)
+    return convert(tree)

@@ -1,0 +1,237 @@
+"""The composable model behind the serving path, the counterpart of
+``repro/models/model.py``: a repeating period of sublayers over
+``num_layers // period`` groups with stacked parameters.
+
+Two entry points:
+
+- ``forward``      : full sequence (prefill), optional cache return
+- ``decode_step``  : one token against a KV/SSM cache (serving)
+
+The reference's ``lax.scan`` over groups is a Python loop over the stacked
+groups.  Caches keep the reference's layout (a leading group dim, then
+the sublayer index, then the batch) so a request's cache splices into a
+batch slot the same way.  Mixture-of-experts, encoder-decoder (whisper)
+and vision-prefix (paligemma) configs raise until their slices.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.configs import ArchConfig
+from repro_torch.models import attention as A
+from repro_torch.models import blocks as B
+from repro_torch.models import mamba as M
+from repro_torch.models.layers import norm
+from repro_torch.models.params import (ParamDesc, ParamTree, check_tree,
+                                       init_params, stack_tree)
+
+Tree = Any
+
+
+def param_descs(cfg: ArchConfig) -> Tree:
+    """The model's parameter descriptors, named and shaped as the
+    reference's ``Model.param_descs`` (groups stacked on a leading dim)."""
+    n_groups = cfg.num_layers // len(cfg.layer_period)
+    descs: Dict[str, Any] = {
+        "embed": ParamDesc((cfg.vocab, cfg.d_model)),
+        "groups": stack_tree(B.sublayer_descs(cfg), n_groups),
+        "final_norm": B.norm_descs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        descs["lm_head"] = ParamDesc((cfg.d_model, cfg.vocab))
+    return descs
+
+
+def _group(tree: Tree, g: int) -> Tree:
+    """Group ``g``'s slice of a stacked parameter tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _group(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+class Model(nn.Module):
+    """A decoder-only LM (attention, Mamba or a period of both) holding
+    its parameters.  ``params`` (a nested dict of tensors shaped as
+    :func:`param_descs`) is used as given; otherwise float32 parameters
+    are drawn from ``generator``, on its device."""
+
+    def __init__(self, cfg: ArchConfig, *, device="cuda",
+                 generator: Optional[torch.Generator] = None,
+                 params: Optional[Tree] = None):
+        super().__init__()
+        self.device = resolve_device(device)
+        for part in ("encoder", "vision"):
+            if getattr(cfg, part) is not None:
+                raise NotImplementedError(
+                    f"{cfg.name}: {part} configs (whisper's encoder and "
+                    f"cross-attention, paligemma's vision prefix) are not "
+                    f"ported yet (ROADMAP queue 1)")
+        p_len = len(cfg.layer_period)
+        if cfg.num_layers % p_len:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers, period "
+                             f"{p_len}")
+        self.cfg = cfg
+        self.period = cfg.layer_period
+        self.n_groups = cfg.num_layers // p_len
+        self.attn_pos = [i for i, k in enumerate(self.period) if k == "attn"]
+        self.mamba_pos = [i for i, k in enumerate(self.period) if k == "mamba"]
+        descs = param_descs(cfg)
+        if params is None:
+            if generator is None:
+                raise ValueError("Model: give params or a generator")
+            params = init_params(descs, generator)
+        check_tree(descs, params)
+        self.params = ParamTree(params).to(self.device)
+
+    # ------------------------------------------------------------------
+    # Forward (prefill)
+    # ------------------------------------------------------------------
+
+    def forward(self, tokens: torch.Tensor, *, return_cache: bool = False,
+                cache_len: Optional[int] = None,
+                last_logit_only: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tree]]:
+        """tokens: (B, S). Returns (logits (B, S, V), moe_aux, cache)."""
+        cfg = self.cfg
+        p = self.params.tree()
+        x = F.embedding(tokens, p["embed"])
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        ys: Dict[str, list] = {"k": [], "v": [], "h": [], "conv": []}
+        for gi in range(self.n_groups):
+            gp = _group(p["groups"], gi)
+            new: Dict[str, list] = {k: [] for k in ys}
+            for i, kind in enumerate(self.period):
+                sub = gp[f"pos{i}"]
+                h = norm(x, sub["mixer_norm"], cfg.norm_kind, cfg.norm_eps)
+                if kind == "attn":
+                    y, (k, v) = A.attn_forward(sub["mixer"], h, positions,
+                                               cfg)
+                    new["k"].append(k)
+                    new["v"].append(v)
+                else:
+                    y, (hl, cs) = M.mamba_forward(sub["mixer"], h, cfg,
+                                                  return_state=True)
+                    new["h"].append(hl)
+                    new["conv"].append(cs)
+                x = x + y
+                x, a = B.apply_ffn(sub, x, cfg)
+                aux = aux + a
+            if return_cache:
+                for k2, v2 in new.items():
+                    if v2:
+                        ys[k2].append(torch.stack(v2))
+        x = norm(x, p["final_norm"], cfg.norm_kind, cfg.norm_eps)
+        if last_logit_only:
+            x = x[:, -1:]     # prefill: only the next-token logits matter
+        logits = self._lm_head(p, x)
+        cache = None
+        if return_cache:
+            stacked = {k2: torch.stack(v2) for k2, v2 in ys.items() if v2}
+            cache = self._build_cache(stacked, S, cache_len, x.shape[0])
+        return logits, aux, cache
+
+    def _lm_head(self, p: Tree, x: torch.Tensor) -> torch.Tensor:
+        w = p.get("lm_head")
+        if w is None:
+            w = p["embed"].T
+        return x @ w
+
+    # ------------------------------------------------------------------
+    # Cache
+    # ------------------------------------------------------------------
+
+    def cache_len(self, seq_len: int) -> int:
+        return A.kv_cache_len(self.cfg, seq_len)
+
+    def init_cache(self, batch: int, seq_len: int, *,
+                   dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+        """An empty decode cache: ``pos`` -1, every state 0.  K/V and the
+        conv window in ``dtype`` (default: the parameters' type; the
+        reference defaults to bfloat16), the SSM state in float32."""
+        cfg, dev = self.cfg, self.device
+        dtype = dtype or self.params.tree()["embed"].dtype
+        c, g = self.cache_len(seq_len), self.n_groups
+        na, nm = len(self.attn_pos), len(self.mamba_pos)
+        cache = {"pos": torch.full((batch,), -1, dtype=torch.int32,
+                                   device=dev)}
+        if na:
+            shape = (g, na, batch, c, max(cfg.num_kv_heads, 1), cfg.hd)
+            cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+            cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        if nm:
+            d_in, n, d_conv, _ = M._dims(cfg)
+            cache["h"] = torch.zeros((g, nm, batch, d_in, n),
+                                     dtype=torch.float32, device=dev)
+            cache["conv"] = torch.zeros((g, nm, batch, d_conv - 1, d_in),
+                                        dtype=dtype, device=dev)
+        return cache
+
+    def _build_cache(self, ys: Dict[str, torch.Tensor], S: int,
+                     cache_len: Optional[int], batch: int) -> Dict:
+        """Turn the collected full-sequence K/V and states into a decode
+        cache of ``cache_len(cache_len or S)`` slots."""
+        C = self.cache_len(cache_len or S)
+        cache: Dict[str, torch.Tensor] = {}
+        if "k" in ys:
+            k, v = ys["k"], ys["v"]       # (G, na, B, S, KH, hd)
+            if S > C:                      # keep last C (rotating slots)
+                slots = torch.arange(S - C, S, device=k.device) % C
+                order = torch.argsort(slots)
+                k = k[:, :, :, S - C:].index_select(3, order)
+                v = v[:, :, :, S - C:].index_select(3, order)
+            elif S < C:
+                pad = (0, 0, 0, 0, 0, C - S)
+                k, v = F.pad(k, pad), F.pad(v, pad)
+            cache["k"], cache["v"] = k, v
+        if "h" in ys:
+            cache["h"] = ys["h"].float()
+            cache["conv"] = ys["conv"]
+        cache["pos"] = torch.full((batch,), S, dtype=torch.int32,
+                                  device=self.device)
+        return cache
+
+    # ------------------------------------------------------------------
+    # Decode
+    # ------------------------------------------------------------------
+
+    def decode_step(self, cache: Dict[str, torch.Tensor],
+                    tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """tokens: (B, 1) -> (logits (B, V), cache).  The cache's tensors
+        are updated in place (the reference returns a new pytree) and the
+        same dict is returned, its ``pos`` advanced by one."""
+        cfg = self.cfg
+        p = self.params.tree()
+        pos = cache["pos"]                                  # (B,)
+        x = F.embedding(tokens, p["embed"])
+        for gi in range(self.n_groups):
+            gp = _group(p["groups"], gi)
+            ia = im = 0
+            for i, kind in enumerate(self.period):
+                sub = gp[f"pos{i}"]
+                h = norm(x, sub["mixer_norm"], cfg.norm_kind, cfg.norm_eps)
+                if kind == "attn":
+                    y, _, _ = A.attn_decode_step(
+                        sub["mixer"], h, pos, cache["k"][gi, ia],
+                        cache["v"][gi, ia], cfg)
+                    ia += 1
+                else:
+                    y, hn, cn = M.mamba_decode_step(
+                        sub["mixer"], h, cache["h"][gi, im],
+                        cache["conv"][gi, im], cfg)
+                    cache["h"][gi, im] = hn
+                    cache["conv"][gi, im] = cn
+                    im += 1
+                x = x + y
+                x, _ = B.apply_ffn(sub, x, cfg)
+        x = norm(x, p["final_norm"], cfg.norm_kind, cfg.norm_eps)
+        logits = self._lm_head(p, x)[:, 0]
+        cache["pos"] = pos + 1
+        return logits, cache

@@ -1,0 +1,108 @@
+"""Parameter declaration of the port's models: names, shapes and
+initialisers.
+
+Every parameter is declared once as a :class:`ParamDesc` with the name,
+shape and initialiser kind the reference gives it
+(``repro/models/params.py``), so a weight tree of the reference maps leaf
+to leaf (``interop.model_params_from_arrays``).  Initialisers draw from an
+explicit ``torch.Generator``, on that generator's device; their bits
+differ from ``jax.random``'s, their distributions do not.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+from torch import nn
+
+Tree = Any
+
+
+@dataclasses.dataclass
+class ParamDesc:
+    shape: Tuple[int, ...]
+    init: str = "normal"     # normal | zeros | ones | scaled | conv | a_log | dt_bias
+    scale: float = 1.0       # fan-in handled by "scaled"
+
+    def stack(self, g: int) -> "ParamDesc":
+        return ParamDesc((g,) + self.shape, self.init, self.scale)
+
+
+def _materialize(desc: ParamDesc, gen: torch.Generator) -> torch.Tensor:
+    """One float32 parameter, drawn on ``gen``'s device (the reference's
+    kinds and fan-in rule, applied to the stacked shape as the reference
+    does)."""
+    s, dev = desc.shape, gen.device
+    if desc.init == "zeros":
+        return torch.zeros(s, device=dev)
+    if desc.init == "ones":
+        return torch.ones(s, device=dev)
+    if desc.init == "a_log":
+        # mamba: A = -exp(A_log); init A_log = log(arange(1, N+1)) broadcast
+        a = torch.log(torch.arange(1, s[-1] + 1, dtype=torch.float32,
+                                   device=dev))
+        return a.expand(s).clone()
+    if desc.init == "dt_bias":
+        # mamba dt bias: inverse-softplus of uniform in [1e-3, 1e-1]
+        u = torch.rand(s, generator=gen, device=dev) * (1e-1 - 1e-3) + 1e-3
+        return torch.log(torch.expm1(u))
+    if desc.init in ("normal", "scaled", "conv"):
+        fan_in = s[-2] if len(s) >= 2 else s[-1]
+        if desc.init == "conv":
+            fan_in = s[0]
+        std = desc.scale / math.sqrt(max(fan_in, 1))
+        return torch.randn(s, generator=gen, device=dev).mul_(std)
+    raise ValueError(desc.init)
+
+
+def init_params(tree: Tree, gen: torch.Generator) -> Tree:
+    """The descriptor tree's float32 parameters, drawn in sorted-key
+    order."""
+    if isinstance(tree, ParamDesc):
+        return _materialize(tree, gen)
+    return {k: init_params(tree[k], gen) for k in sorted(tree)}
+
+
+def stack_tree(tree: Tree, g: int) -> Tree:
+    """Add a leading group dimension of size g to every descriptor."""
+    if isinstance(tree, ParamDesc):
+        return tree.stack(g)
+    return {k: stack_tree(v, g) for k, v in tree.items()}
+
+
+def check_tree(descs: Tree, tree: Tree, path: str = "") -> None:
+    """Raise unless ``tree`` has exactly the descriptors' keys, and each
+    leaf their shape."""
+    if isinstance(descs, ParamDesc):
+        shape = tuple(getattr(tree, "shape", ()))
+        if shape != tuple(descs.shape):
+            raise ValueError(f"parameter {path or '/'}: shape {shape}, "
+                             f"expected {descs.shape}")
+        return
+    if not isinstance(tree, dict) or set(tree) != set(descs):
+        got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+        raise ValueError(f"parameter tree {path or '/'}: keys {got}, "
+                         f"expected {sorted(descs)}")
+    for k in descs:
+        check_tree(descs[k], tree[k], f"{path}/{k}")
+
+
+class ParamTree(nn.Module):
+    """A nested dict of tensors held as an ``nn.Module``: dict nodes are
+    child modules, leaves frozen parameters (the models only infer)."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self) -> Dict[str, Any]:
+        """The parameters as the nested dict they were given as."""
+        out: Dict[str, Any] = dict(self.named_parameters(recurse=False))
+        out.update((k, m.tree()) for k, m in self.named_children())
+        return out

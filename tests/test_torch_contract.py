@@ -2,6 +2,7 @@
 nor the JAX package, its entry points default to the card and raise
 without one, and the constants it copied equal the reference's."""
 import ast
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.configs as ref_configs
 import repro.core.env as ref_env
 import repro.core.micro as ref_micro
 import repro.kernels.compat_score.fused as ref_fused
@@ -18,6 +20,7 @@ import repro.kernels.compat_score.kernel as ref_compat
 import repro.sim.cluster as ref_cluster
 import repro.sim.state as ref_state
 import repro.workload.batch as ref_batch
+import repro_torch.configs as configs
 import repro_torch.core.micro as micro
 import repro_torch.core.predictor as predictor
 import repro_torch.kernels.compat_score.ref as compat
@@ -27,7 +30,9 @@ import repro_torch.workload.batch as batch
 from repro_torch.core.macro import MacroAllocator
 from repro_torch.core.micro import MicroAllocator
 from repro_torch.core.torta import TortaScheduler
-from repro_torch.interop import rings_from_arrays
+from repro_torch.interop import model_params_from_arrays, rings_from_arrays
+from repro_torch.models import Model
+from repro_torch.serving import Replica, ServingCluster
 from repro_torch.sim.engine import Engine
 from repro_torch.sim.state import make_cluster_state
 from repro_torch.sim.topology import Topology
@@ -106,6 +111,12 @@ ENTRY_POINTS = {
     "rings_from_arrays": lambda: rings_from_arrays(
         np.zeros((1, 1, 4)), np.zeros((1, 1, 4)), np.zeros((1, 1, 4, 8)),
         np.zeros((1, 1, 4))),
+    "Model": lambda: Model(configs.reduced(configs.get_config(
+        "tinyllama-1.1b"))),
+    "Replica": lambda: Replica({}),
+    "ServingCluster": lambda: ServingCluster(1, 1, ["tinyllama-1.1b"]),
+    "model_params_from_arrays": lambda: model_params_from_arrays(
+        configs.reduced(configs.get_config("tinyllama-1.1b")), {}),
 }
 
 
@@ -155,3 +166,23 @@ def test_copied_cluster_builder_matches_reference():
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name),
                                       err_msg=name)
         assert getattr(got, name).dtype == getattr(want, name).dtype, name
+
+
+def test_copied_arch_registry_equals_reference():
+    assert configs.ARCH_IDS == ref_configs.ARCH_IDS
+    assert list(configs.list_archs()) == list(ref_configs.list_archs())
+
+
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
+def test_copied_config_equals_reference(arch):
+    """Every field of the published config and of its ``reduced()``
+    variant, nested configs (MoE, SSM, encoder, vision) included."""
+    for fn in (lambda m: m.get_config(arch),
+               lambda m: m.reduced(m.get_config(arch)),
+               lambda m: m.reduced(m.get_config(arch), layers=2, d_model=128,
+                                   vocab=256)):
+        got, want = fn(configs), fn(ref_configs)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert (got.hd, got.is_attention_free, got.has_mamba,
+                got.subquadratic) == (want.hd, want.is_attention_free,
+                                      want.has_mamba, want.subquadratic)
