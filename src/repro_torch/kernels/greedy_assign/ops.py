@@ -5,9 +5,16 @@ by ``core/micro_torch.assign_scan_all``; the kernel and the plain
 version (``ref.py``) take the very same tensors, so the pre-scan values
 (load, demand, note norms, speed, the decay table) are computed once, in
 that wrapper, for both.  A CUDA operand set launches the kernel; a CPU
-one runs the plain version.  ``greedy_assign.launches`` counts kernel
-launches.  An optional ``static`` operand selects the kernel's static
-variant (the per-region route with the fused score kernel).
+one runs the plain version.  An optional ``static`` operand selects the
+kernel's static variant (the per-region route with the fused score
+kernel).
+
+A call launches two kernels: a pre-pass that writes the static score
+terms of every (task, server) pair into a workspace the wrapper
+allocates (``workspace_bytes``), and the task loop, one thread-block
+cluster per region, which reads them.  ``launch_plan`` picks the cluster
+size and each block's server range from the shapes and the card's SM
+count.  ``greedy_assign.launches`` counts calls that launch the loop.
 """
 from __future__ import annotations
 
@@ -27,9 +34,22 @@ SOURCE = _build.KernelSource(
     "greedy_assign",
     pathlib.Path(__file__).resolve().parent / "csrc" / "greedy_assign.cu",
     extra_flags=("-fmad=false",))
+# the same kernel with its task steps' phases counted (``step_profile``)
+PROFILE_SOURCE = dataclasses.replace(
+    SOURCE, name="greedy_assign_profile",
+    extra_flags=SOURCE.extra_flags + ("-DGREEDY_STEP_PROFILE",))
+PHASES = ("pick and send", "score next", "wait partials", "fold", "push")
 KEEP = 4                      # ring depth the kernel is compiled for
 MAX_AGE = 40                  # Eq-10 age clip (decay table has 41 entries)
 SMEM_LIMIT = 232448           # dynamic shared memory a block may use (H100)
+SM_SMEM = 233472              # shared memory of one SM, 1 KB a block reserved
+SM_THREADS = 2048             # resident threads an SM holds
+MAX_BLOCKS_PER_SM = 2         # blocks of a launch the plan lets share an SM
+CLUSTER_SIZES = (1, 2, 4, 8, 16)   # blocks a region; 16 is non-portable
+GRANULE = 16                  # a block's first server is a multiple of this
+LANES = 4                     # threads that score one server
+STAGES = 4                    # prefetched task rows (kStages in the source)
+TASK_HEAD = 32                # task record bytes before its embedding
 
 
 class ScoreConsts(NamedTuple):
@@ -89,21 +109,154 @@ class GreedyInputs:
 Rings = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+class LaunchPlan(NamedTuple):
+    """How one launch lays a region over a thread-block cluster: block b
+    of ``cluster`` blocks owns servers ``[b * span, (b + 1) * span)`` (cut
+    at S_pad), with ``threads`` threads and ``smem`` bytes of dynamic
+    shared memory."""
+
+    cluster: int
+    span: int
+    threads: int
+    smem: int
+
+    def ranges(self, s_pad: int) -> list:
+        """Each block's (first, end) server, in cluster rank order."""
+        return [(min(b * self.span, s_pad), min((b + 1) * self.span, s_pad))
+                for b in range(self.cluster)]
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def task_bytes(embed_dim: int) -> int:
+    """Bytes of one task's record in the pre-pass workspace (mid, has,
+    norm, note, work, the locality its predecessor's ring entry gives it,
+    then the embedding), 16-byte aligned."""
+    return _round_up(TASK_HEAD + 4 * embed_dim, 16)
+
+
+def workspace_bytes(n_regions: int, n_pad: int, s_pad: int,
+                    embed_dim: int) -> int:
+    """The pre-pass workspace: one row per (region, task slot) holding
+    the task's record and, per server (S_pad rounded up to 16), the
+    float64 static score and work penalty and one byte of flags."""
+    return n_regions * n_pad * (task_bytes(embed_dim)
+                                + 17 * _round_up(s_pad, GRANULE))
+
+
+def smem_bytes(span: int, embed_dim: int, cluster: int, threads: int) -> int:
+    """Dynamic shared memory of one block (``Layout`` in the source): the
+    prefetch stages, the cluster's double-buffered (key, index) partials
+    (one a warp), each server's float64 queue, speed and switch scale and
+    its next keys and queue, the decay table, the rings and the mbarriers
+    (one a stage, one a partial buffer)."""
+    stage = _round_up(task_bytes(embed_dim) + 17 * span, 16)
+    return (STAGES * stage + 2 * cluster * (threads // 32) * 16
+            + 48 * span + _round_up(8 * (MAX_AGE + 1), 16)
+            + _round_up(span * (16 * embed_dim + 52), 16)
+            + _round_up(8 * (STAGES + 2), 16))
+
+
+def _plan(s_pad: int, embed_dim: int, cluster: int) -> LaunchPlan:
+    span = _round_up(-(-s_pad // cluster), GRANULE)
+    threads = min(1024, _round_up(LANES * span, 32))
+    return LaunchPlan(cluster, span, threads,
+                      smem_bytes(span, embed_dim, cluster, threads))
+
+
+def blocks_per_sm(plan: LaunchPlan) -> int:
+    """Blocks of ``plan`` the plan counts on an SM holding at once: up to
+    ``MAX_BLOCKS_PER_SM`` as their shared memory and threads allow."""
+    return min(MAX_BLOCKS_PER_SM, SM_SMEM // (plan.smem + 1024),
+               SM_THREADS // plan.threads)
+
+
+def launch_plan(n_regions: int, s_pad: int, embed_dim: int, n_sms: int,
+                cluster: Optional[int] = None) -> LaunchPlan:
+    """The launch plan for R regions of S_pad servers at embedding width
+    E on a card of ``n_sms`` SMs: the largest cluster size in
+    ``CLUSTER_SIZES`` whose R clusters fit on the card at once
+    (``blocks_per_sm`` blocks an SM), every block owning at least one
+    server and its shared memory within ``SMEM_LIMIT``.  ``cluster``
+    forces a size (the on-card sweep), which then need not fit the card
+    at once.  Raises when no size can run the shape."""
+    plans = {}
+    for c in CLUSTER_SIZES:
+        plan = _plan(s_pad, embed_dim, c)
+        if (c - 1) * plan.span < s_pad and plan.smem <= SMEM_LIMIT:
+            plans[c] = plan
+    if cluster is not None:
+        if cluster not in plans:
+            raise ValueError(
+                f"greedy_assign: cluster size {cluster} cannot run "
+                f"{s_pad} servers at embed width {embed_dim} (sizes that "
+                f"can: {sorted(plans)})")
+        return plans[cluster]
+    fits = [c for c, plan in plans.items()
+            if c * n_regions <= n_sms * blocks_per_sm(plan)]
+    if not fits:
+        raise ValueError(
+            f"greedy_assign: {n_regions} regions of {s_pad} servers at "
+            f"embed width {embed_dim} do not fit {n_sms} SMs: a cluster "
+            f"of {min(plans, default='any')} blocks a region is the least "
+            f"whose shared memory fits {SMEM_LIMIT} B a block")
+    return plans[max(fits)]
+
+
 @functools.cache
-def _lib():
-    """The launcher and the shared-memory size query, bound once per
-    process (the build, the source digest and the ctypes signatures stay
-    off the per-slot path)."""
-    lib = _build.load(SOURCE)
+def _lib(source: _build.KernelSource = SOURCE):
+    """The launcher and the plan queries, bound once per process (the
+    build, the source digest and the ctypes signatures stay off the
+    per-slot path)."""
+    lib = _build.load(source)
     fn = lib.greedy_assign_launch
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fn.argtypes = ([i32] * 8 + [f64] + [ptr] * 26 + [f64] * 8
-                   + [ptr, ptr])
+    size = ctypes.c_size_t
+    fn.argtypes = ([i32] * 12 + [size, i32, i32, ctypes.c_longlong, f64]
+                   + [ptr] * 26 + [f64] * 8 + [ptr] * 3)
     fn.restype = ctypes.c_int
     smem = lib.greedy_assign_smem_bytes
-    smem.argtypes = [i32, i32]
-    smem.restype = ctypes.c_size_t
-    return fn, smem
+    smem.argtypes = [i32] * 6
+    smem.restype = size
+    resident = lib.greedy_assign_max_clusters
+    resident.argtypes = [i32, i32, i32, i32, size]
+    resident.restype = i32
+    return fn, smem, resident, lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.cache
+def max_resident_clusters(static: bool, embed_dim: int,
+                          plan: LaunchPlan) -> int:
+    """Clusters of ``plan`` the card keeps resident at once
+    (``cudaOccupancyMaxActiveClusters``) for the kernel of this variant
+    and embedding width."""
+    return _lib()[2](int(static), embed_dim, plan.cluster, plan.threads,
+                     plan.smem)
+
+
+def step_profile(x: GreedyInputs, plan: LaunchPlan) -> dict:
+    """Cycles a task step spends in each of ``PHASES`` on the card, from
+    a build of the kernel that counts them (clock64, lane 0 of each warp
+    of the first cluster): phase -> (mean, max) over those warps."""
+    run_plan(x, plan, source=PROFILE_SOURCE)
+    torch.cuda.synchronize(x.t_mids.device)
+    per_warp = len(PHASES) + 1
+    buf = (ctypes.c_ulonglong * (16 * 32 * per_warp))()
+    err = _lib(PROFILE_SOURCE)[3].greedy_assign_step_cycles(buf)
+    if err != 0:
+        raise RuntimeError(f"greedy_assign step profile: cudaError {err}")
+    counts = torch.tensor(list(buf), dtype=torch.float64).view(
+        16, 32, per_warp)[:plan.cluster, :plan.threads // 32]
+    cycles = counts[..., :-1] / counts[..., -1:].clamp(min=1)
+    return {name: (float(cycles[..., j].mean()), float(cycles[..., j].max()))
+            for j, name in enumerate(PHASES)}
 
 
 _DTYPES = {
@@ -160,24 +313,53 @@ def greedy_assign(x: GreedyInputs) -> Tuple[torch.Tensor, Rings]:
     if dev.type != "cuda":
         raise ValueError(f"greedy_assign: unsupported device {dev}")
     _check(x)
-    launch, smem_bytes = _lib()
+    r, s_pad, _ = x.l_mids.shape
+    plan = launch_plan(r, s_pad, x.l_emb.shape[3],
+                       _sm_count(dev.index or 0))
+    resident = max_resident_clusters(x.static is not None,
+                                     x.l_emb.shape[3], plan)
+    if resident < r:
+        raise RuntimeError(
+            f"greedy_assign: the card keeps {resident} clusters of {plan} "
+            f"resident at once, the plan needs {r}")
+    return run_plan(x, plan)
+
+
+PREPASS, LOOP = 1, 2           # the two launches of a slot's greedy
+
+
+def run_plan(x: GreedyInputs, plan: LaunchPlan,
+             stages: Tuple[int, ...] = (PREPASS, LOOP),
+             source: _build.KernelSource = SOURCE
+             ) -> Tuple[torch.Tensor, Rings]:
+    """Launch the pre-pass and the task loop on a CUDA operand set with
+    the given plan (the on-card sweep forces cluster sizes, times the
+    pre-pass alone with ``stages=(PREPASS,)`` and profiles the steps with
+    ``PROFILE_SOURCE``)."""
+    _check(x)
+    launch, smem_bytes_of = _lib(source)[:2]
+    dev = x.t_mids.device
     r, s_pad, _ = x.l_mids.shape
     n_pad = x.t_mids.shape[1]
     e = x.l_emb.shape[3]
-    if smem_bytes(s_pad, e) > SMEM_LIMIT:
-        raise ValueError(
-            f"greedy_assign: {s_pad} servers x embed width {e} need "
-            f"{smem_bytes(s_pad, e)} B of shared memory per region, over "
-            f"the {SMEM_LIMIT} B a block may use")
+    tb = task_bytes(e)
+    if smem_bytes_of(plan.span, e, plan.cluster, plan.threads, tb,
+                     MAX_AGE) != plan.smem:
+        raise RuntimeError(f"greedy_assign: {plan} disagrees with the "
+                           f"kernel's shared-memory layout")
     x = dataclasses.replace(x, **{
         name: getattr(x, name).contiguous() for name in _DTYPES},
         static=None if x.static is None else x.static.contiguous())
     rings = tuple(a.clone() for a in (x.l_mids, x.l_slots, x.l_emb, x.l_nrm))
     out = torch.empty((r, n_pad), dtype=torch.int32, device=dev)
+    ws = torch.empty(workspace_bytes(r, n_pad, s_pad, e), dtype=torch.uint8,
+                     device=dev)
+    s_ws = _round_up(s_pad, GRANULE)
     c = x.consts
-    err = launch(
+    args = (
         r, s_pad, n_pad, e, x.warm_srv.shape[2], int(x.t), EMPTY, MAX_AGE,
-        float(x.slot_s),
+        plan.cluster, plan.span, plan.threads, plan.smem, tb, s_ws,
+        tb + 17 * s_ws, float(x.slot_s),
         x.tflops.data_ptr(), x.mem_s.data_ptr(), x.kind_s.data_ptr(),
         x.load.data_ptr(), x.cur_model.data_ptr(), x.warm_srv.data_ptr(),
         x.switch_scale.data_ptr(), x.active.data_ptr(), x.speed.data_ptr(),
@@ -188,11 +370,16 @@ def greedy_assign(x: GreedyInputs) -> Tuple[torch.Tensor, Rings]:
         x.n_real.data_ptr(), x.decay.data_ptr(),
         None if x.static is None else x.static.data_ptr(),
         *(float(v) for v in c),
-        out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"greedy_assign kernel launch failed: cudaError {err}")
-    greedy_assign.launches += 1
+        out.data_ptr(), ws.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    for stage in stages:
+        err = launch(stage, *args)
+        if err != 0:
+            raise RuntimeError(
+                f"greedy_assign kernel launch failed (stage {stage}): "
+                f"cudaError {err}")
+    if LOOP in stages:
+        greedy_assign.launches += 1
     return out, rings
 
 

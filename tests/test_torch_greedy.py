@@ -20,6 +20,7 @@ from repro_torch.core.micro_torch import (bucket, note_norms,
                                           server_pad_map)
 from repro_torch.interop import rings_from_arrays
 from repro_torch.kernels.greedy_assign import greedy_assign
+from repro_torch.kernels.greedy_assign import ops
 
 # (regions, servers per region, seed): the randomized sweep of the fused
 # step tests, with every size class and a 1-region case
@@ -253,3 +254,101 @@ def test_port_continues_from_reference_rings():
         got = port.assign_batch_all(port_obs(obs), port_batch(batch),
                                     region_of)
         np.testing.assert_array_equal(got, want, err_msg=f"slot {t}")
+
+
+# ------------------------------------------------------------ launch plan
+
+# the H100's SM count; the plan takes the card's own on the card
+N_SMS = 132
+
+
+def _assert_plan_covers(plan, s_pad):
+    """Every server owned by exactly one block; ranges contiguous and
+    ascending in rank (the first-index tie-break folds partials of
+    ascending ranges); every block owns at least one server."""
+    assert plan.cluster in ops.CLUSTER_SIZES
+    ranges = plan.ranges(s_pad)
+    assert len(ranges) == plan.cluster
+    assert ranges[0][0] == 0 and ranges[-1][1] == s_pad
+    for (lo, hi), (nxt, _) in zip(ranges, ranges[1:]):
+        assert hi == nxt
+    assert all(lo < hi for lo, hi in ranges)
+    owners = np.zeros(s_pad, np.int64)
+    for lo, hi in ranges:
+        owners[lo:hi] += 1
+    assert (owners == 1).all()
+    # a block's first server starts a 16-byte-aligned slice of its rows
+    assert plan.span % ops.GRANULE == 0
+    assert all(lo % ops.GRANULE == 0 for lo, _ in ranges)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    assert plan.smem <= ops.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("e", [8, 16])
+@pytest.mark.parametrize("s_pad", [20, 500, 4096])
+@pytest.mark.parametrize("r", [1, 6, 25])
+def test_launch_plan_covers_servers_and_fits_card(r, s_pad, e):
+    """The wrapper's launch plan over the shapes the port meets: all R
+    clusters resident at once (``blocks_per_sm`` blocks an SM), each
+    block within the shared-memory limit; 25 regions of 4096 servers need
+    clusters of 8 for shared memory, which 132 SMs cannot hold at once,
+    and raise."""
+    if r == 25 and s_pad == 4096:
+        with pytest.raises(ValueError, match="do not fit"):
+            ops.launch_plan(r, s_pad, e, N_SMS)
+        return
+    plan = ops.launch_plan(r, s_pad, e, N_SMS)
+    _assert_plan_covers(plan, s_pad)
+    assert plan.cluster * r <= N_SMS * ops.blocks_per_sm(plan)
+    assert 1 <= ops.blocks_per_sm(plan) <= ops.MAX_BLOCKS_PER_SM
+    assert ops.blocks_per_sm(plan) * (plan.smem + 1024) <= ops.SM_SMEM
+    assert ops.blocks_per_sm(plan) * plan.threads <= ops.SM_THREADS
+    assert plan.smem == ops.smem_bytes(plan.span, e, plan.cluster,
+                                       plan.threads)
+    # the largest size that fits: the next larger one does not
+    bigger = [c for c in ops.CLUSTER_SIZES if c > plan.cluster]
+    if bigger:
+        c = bigger[0]
+        try:
+            forced = ops.launch_plan(r, s_pad, e, N_SMS, cluster=c)
+        except ValueError:
+            return
+        assert forced.cluster * r > N_SMS * ops.blocks_per_sm(forced)
+
+
+@pytest.mark.parametrize("s_pad", [20, 500, 4096])
+def test_forced_cluster_sizes_cover_servers(s_pad):
+    """The on-card sweep forces each size; every size the plan accepts
+    still covers the servers, and a size that would leave a block with
+    no server raises."""
+    accepted = 0
+    for c in ops.CLUSTER_SIZES:
+        if (c - 1) * ops.GRANULE >= s_pad:
+            with pytest.raises(ValueError, match="cannot run"):
+                ops.launch_plan(1, s_pad, 8, N_SMS, cluster=c)
+            continue
+        try:
+            plan = ops.launch_plan(1, s_pad, 8, N_SMS, cluster=c)
+        except ValueError:
+            continue
+        assert plan.cluster == c
+        _assert_plan_covers(plan, s_pad)
+        accepted += 1
+    assert accepted >= 2
+
+
+@pytest.mark.parametrize("r,s_pad,e", [(200, 500, 8), (1, 100_000, 8),
+                                       (25, 4096, 16)])
+def test_launch_plan_raises_when_shape_cannot_fit(r, s_pad, e):
+    """More regions than SMs, or a region whose shared memory exceeds
+    the limit even at the largest cluster size, raise."""
+    with pytest.raises(ValueError, match="do not fit|cannot run"):
+        ops.launch_plan(r, s_pad, e, N_SMS)
+
+
+def test_workspace_layout():
+    """One pre-pass row per (region, task slot): a 16-byte-aligned task
+    record, then 17 bytes per server over S_pad rounded up to 16."""
+    assert ops.task_bytes(8) == 64 and ops.task_bytes(16) == 96
+    assert ops.workspace_bytes(25, 5632, 500, 8) == 25 * 5632 * (64 + 17 * 512)
+    assert ops.workspace_bytes(1, 16, 20, 16) == 16 * (96 + 17 * 32)
