@@ -14,7 +14,9 @@ terms of every (task, server) pair into a workspace the wrapper
 allocates (``workspace_bytes``), and the task loop, one thread-block
 cluster per region, which reads them.  ``launch_plan`` picks the cluster
 size and each block's server range from the shapes and the card's SM
-count.  ``greedy_assign.launches`` counts calls that launch the loop.
+count; when the regions' clusters do not all fit the card at once, they
+run in waves.  ``greedy_assign.launches`` counts calls that launch the
+loop.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import ctypes
 import dataclasses
 import functools
 import pathlib
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,9 +45,18 @@ KEEP = 4                      # ring depth the kernel is compiled for
 MAX_AGE = 40                  # Eq-10 age clip (decay table has 41 entries)
 SMEM_LIMIT = 232448           # dynamic shared memory a block may use (H100)
 SM_SMEM = 233472              # shared memory of one SM, 1 KB a block reserved
-SM_THREADS = 2048             # resident threads an SM holds
-MAX_BLOCKS_PER_SM = 2         # blocks of a launch the plan lets share an SM
+# blocks of a one-wave launch the plan puts on an SM, on average: it takes
+# the largest cluster size within this (25 x 500: C = 8, not 16)
+MAX_BLOCKS_PER_SM = 2
 CLUSTER_SIZES = (1, 2, 4, 8, 16)   # blocks a region; 16 is non-portable
+# a task step's time in one wave at each cluster size, in us: a call's
+# time over its waves and its longest region's steps, 200 regions x 500
+# servers on an H100 (PERF.md §6); weighs the waves of a launch whose
+# clusters do not all fit the card at once
+STEP_US = {1: 3.932, 2: 1.708, 4: 1.623, 8: 1.545, 16: 1.604}
+# threads of the task loop an SM holds at once: its registers leave room
+# for one 1024-thread block (the card's count, PERF.md §6)
+LOOP_SM_THREADS = 1024
 GRANULE = 16                  # a block's first server is a multiple of this
 LANES = 4                     # threads that score one server
 STAGES = 4                    # prefetched task rows (kStages in the source)
@@ -166,22 +177,33 @@ def _plan(s_pad: int, embed_dim: int, cluster: int) -> LaunchPlan:
                       smem_bytes(span, embed_dim, cluster, threads))
 
 
-def blocks_per_sm(plan: LaunchPlan) -> int:
-    """Blocks of ``plan`` the plan counts on an SM holding at once: up to
-    ``MAX_BLOCKS_PER_SM`` as their shared memory and threads allow."""
-    return min(MAX_BLOCKS_PER_SM, SM_SMEM // (plan.smem + 1024),
-               SM_THREADS // plan.threads)
+def resident_estimate(plan: LaunchPlan, n_sms: int) -> int:
+    """Clusters of ``plan`` a card of ``n_sms`` SMs holds at once, as far
+    as shared memory and ``LOOP_SM_THREADS`` allow (the card's own count,
+    ``max_resident_clusters``, also weighs where clusters may go)."""
+    per_sm = min(SM_SMEM // (plan.smem + 1024),
+                 LOOP_SM_THREADS // plan.threads)
+    return n_sms * per_sm // plan.cluster
 
 
 def launch_plan(n_regions: int, s_pad: int, embed_dim: int, n_sms: int,
-                cluster: Optional[int] = None) -> LaunchPlan:
+                cluster: Optional[int] = None,
+                resident: Optional[Callable[[LaunchPlan], int]] = None
+                ) -> LaunchPlan:
     """The launch plan for R regions of S_pad servers at embedding width
-    E on a card of ``n_sms`` SMs: the largest cluster size in
-    ``CLUSTER_SIZES`` whose R clusters fit on the card at once
-    (``blocks_per_sm`` blocks an SM), every block owning at least one
-    server and its shared memory within ``SMEM_LIMIT``.  ``cluster``
-    forces a size (the on-card sweep), which then need not fit the card
-    at once.  Raises when no size can run the shape."""
+    E on a card of ``n_sms`` SMs.  Sizes in ``CLUSTER_SIZES`` qualify
+    when every block owns at least one server and its shared memory fits
+    ``SMEM_LIMIT``.  ``resident(plan)`` counts the clusters of a plan the
+    card holds at once (the card's own count in the wrapper,
+    ``resident_estimate`` by default).  Where some size's R clusters are
+    all held at once with at most ``MAX_BLOCKS_PER_SM`` blocks an SM on
+    average, the plan takes the largest such size.  Otherwise the
+    clusters run in waves (nothing couples two regions' clusters): the
+    size that minimises ``waves * STEP_US[C]``, where waves is R over the
+    clusters held at once, rounded up, and ``STEP_US`` is a task step's
+    time at each size (on-card sweep, PERF.md §6).  ``cluster`` forces a
+    size (the on-card sweep).  Raises when no size qualifies: one
+    region's block overflows shared memory."""
     plans = {}
     for c in CLUSTER_SIZES:
         plan = _plan(s_pad, embed_dim, c)
@@ -194,15 +216,25 @@ def launch_plan(n_regions: int, s_pad: int, embed_dim: int, n_sms: int,
                 f"{s_pad} servers at embed width {embed_dim} (sizes that "
                 f"can: {sorted(plans)})")
         return plans[cluster]
-    fits = [c for c, plan in plans.items()
-            if c * n_regions <= n_sms * blocks_per_sm(plan)]
-    if not fits:
+    if not plans:
         raise ValueError(
-            f"greedy_assign: {n_regions} regions of {s_pad} servers at "
-            f"embed width {embed_dim} do not fit {n_sms} SMs: a cluster "
-            f"of {min(plans, default='any')} blocks a region is the least "
-            f"whose shared memory fits {SMEM_LIMIT} B a block")
-    return plans[max(fits)]
+            f"greedy_assign: {s_pad} servers at embed width {embed_dim} "
+            f"cannot run: no cluster size in {CLUSTER_SIZES} keeps a "
+            f"block's shared memory within {SMEM_LIMIT} B")
+    count = resident or functools.partial(resident_estimate, n_sms=n_sms)
+    held = {c: count(plan) for c, plan in plans.items()}
+    fits = [c for c in plans if held[c] >= n_regions
+            and c * n_regions <= MAX_BLOCKS_PER_SM * n_sms]
+    if fits:
+        return plans[max(fits)]
+    costs = {c: -(-n_regions // h) * STEP_US[c]
+             for c, h in held.items() if h > 0}
+    if not costs:
+        raise ValueError(
+            f"greedy_assign: the card holds no cluster of any size in "
+            f"{sorted(plans)} for {s_pad} servers at embed width "
+            f"{embed_dim}")
+    return plans[min(costs, key=costs.get)]
 
 
 @functools.cache
@@ -232,11 +264,12 @@ def _sm_count(index: int) -> int:
 
 
 @functools.cache
+@functools.cache
 def max_resident_clusters(static: bool, embed_dim: int,
                           plan: LaunchPlan) -> int:
     """Clusters of ``plan`` the card keeps resident at once
     (``cudaOccupancyMaxActiveClusters``) for the kernel of this variant
-    and embedding width."""
+    and embedding width; asked once a process for each."""
     return _lib()[2](int(static), embed_dim, plan.cluster, plan.threads,
                      plan.smem)
 
@@ -314,14 +347,12 @@ def greedy_assign(x: GreedyInputs) -> Tuple[torch.Tensor, Rings]:
         raise ValueError(f"greedy_assign: unsupported device {dev}")
     _check(x)
     r, s_pad, _ = x.l_mids.shape
-    plan = launch_plan(r, s_pad, x.l_emb.shape[3],
-                       _sm_count(dev.index or 0))
-    resident = max_resident_clusters(x.static is not None,
-                                     x.l_emb.shape[3], plan)
-    if resident < r:
+    static, e = x.static is not None, x.l_emb.shape[3]
+    plan = launch_plan(r, s_pad, e, _sm_count(dev.index or 0),
+                       resident=lambda p: max_resident_clusters(static, e, p))
+    if max_resident_clusters(static, e, plan) <= 0:
         raise RuntimeError(
-            f"greedy_assign: the card keeps {resident} clusters of {plan} "
-            f"resident at once, the plan needs {r}")
+            f"greedy_assign: the card holds no cluster of {plan}")
     return run_plan(x, plan)
 
 

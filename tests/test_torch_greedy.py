@@ -284,27 +284,63 @@ def _assert_plan_covers(plan, s_pad):
     assert plan.smem <= ops.SMEM_LIMIT
 
 
+def _fits_at_once(r, s_pad, e):
+    """Cluster sizes whose R clusters the card holds at once
+    (``resident_estimate``) with at most ``MAX_BLOCKS_PER_SM`` blocks an
+    SM on average."""
+    fits = []
+    for c in ops.CLUSTER_SIZES:
+        try:
+            plan = ops.launch_plan(r, s_pad, e, N_SMS, cluster=c)
+        except ValueError:
+            continue
+        if (ops.resident_estimate(plan, N_SMS) >= r
+                and c * r <= ops.MAX_BLOCKS_PER_SM * N_SMS):
+            fits.append(c)
+    return fits
+
+
+def _rule_choice(r, s_pad, e):
+    """The wave rule written out: the admitted size with the least
+    waves x ``STEP_US``, waves from ``resident_estimate``."""
+    costs = {}
+    for c in ops.CLUSTER_SIZES:
+        try:
+            plan = ops.launch_plan(r, s_pad, e, N_SMS, cluster=c)
+        except ValueError:
+            continue
+        held = ops.resident_estimate(plan, N_SMS)
+        if held > 0:
+            costs[c] = -(-r // held) * ops.STEP_US[c]
+    return min(costs, key=costs.get)
+
+
 @pytest.mark.parametrize("e", [8, 16])
 @pytest.mark.parametrize("s_pad", [20, 500, 4096])
 @pytest.mark.parametrize("r", [1, 6, 25])
 def test_launch_plan_covers_servers_and_fits_card(r, s_pad, e):
-    """The wrapper's launch plan over the shapes the port meets: all R
-    clusters resident at once (``blocks_per_sm`` blocks an SM), each
-    block within the shared-memory limit; 25 regions of 4096 servers need
-    clusters of 8 for shared memory, which 132 SMs cannot hold at once,
-    and raise."""
-    if r == 25 and s_pad == 4096:
-        with pytest.raises(ValueError, match="do not fit"):
-            ops.launch_plan(r, s_pad, e, N_SMS)
-        return
+    """The wrapper's launch plan over the shapes the port meets covers
+    every server, each block within the shared-memory limit.  Where some
+    size's R clusters are held at once (``resident_estimate``, at most
+    ``MAX_BLOCKS_PER_SM`` blocks an SM on average) it is the largest such
+    size; 25 regions of 4096 servers need clusters of 8 for shared
+    memory, which 132 SMs cannot hold at once, so they run in waves at
+    the wave rule's size."""
     plan = ops.launch_plan(r, s_pad, e, N_SMS)
     _assert_plan_covers(plan, s_pad)
-    assert plan.cluster * r <= N_SMS * ops.blocks_per_sm(plan)
-    assert 1 <= ops.blocks_per_sm(plan) <= ops.MAX_BLOCKS_PER_SM
-    assert ops.blocks_per_sm(plan) * (plan.smem + 1024) <= ops.SM_SMEM
-    assert ops.blocks_per_sm(plan) * plan.threads <= ops.SM_THREADS
     assert plan.smem == ops.smem_bytes(plan.span, e, plan.cluster,
                                        plan.threads)
+    held = ops.resident_estimate(plan, N_SMS)
+    if r == 25 and s_pad == 4096:
+        assert not _fits_at_once(r, s_pad, e)
+        assert plan.cluster == _rule_choice(r, s_pad, e)
+        assert held < r
+        return
+    assert held >= r
+    assert plan.cluster * r <= ops.MAX_BLOCKS_PER_SM * N_SMS
+    per_sm = held * plan.cluster // N_SMS
+    assert per_sm * (plan.smem + 1024) <= ops.SM_SMEM
+    assert per_sm * plan.threads <= ops.LOOP_SM_THREADS
     # the largest size that fits: the next larger one does not
     bigger = [c for c in ops.CLUSTER_SIZES if c > plan.cluster]
     if bigger:
@@ -313,7 +349,8 @@ def test_launch_plan_covers_servers_and_fits_card(r, s_pad, e):
             forced = ops.launch_plan(r, s_pad, e, N_SMS, cluster=c)
         except ValueError:
             return
-        assert forced.cluster * r > N_SMS * ops.blocks_per_sm(forced)
+        assert (ops.resident_estimate(forced, N_SMS) < r
+                or c * r > ops.MAX_BLOCKS_PER_SM * N_SMS)
 
 
 @pytest.mark.parametrize("s_pad", [20, 500, 4096])
@@ -340,10 +377,49 @@ def test_forced_cluster_sizes_cover_servers(s_pad):
 @pytest.mark.parametrize("r,s_pad,e", [(200, 500, 8), (1, 100_000, 8),
                                        (25, 4096, 16)])
 def test_launch_plan_raises_when_shape_cannot_fit(r, s_pad, e):
-    """More regions than SMs, or a region whose shared memory exceeds
-    the limit even at the largest cluster size, raise."""
-    with pytest.raises(ValueError, match="do not fit|cannot run"):
-        ops.launch_plan(r, s_pad, e, N_SMS)
+    """Only a region whose block overflows shared memory even at the
+    largest cluster size raises (1 x 100,000).  More regions than the
+    card holds clusters at once (200 x 500, 25 x 4096 at E = 16) no
+    longer raise: they run in waves, on a plan that covers every server
+    within the limit."""
+    if s_pad == 100_000:
+        with pytest.raises(ValueError, match="cannot run"):
+            ops.launch_plan(r, s_pad, e, N_SMS)
+        return
+    plan = ops.launch_plan(r, s_pad, e, N_SMS)
+    _assert_plan_covers(plan, s_pad)
+    assert not _fits_at_once(r, s_pad, e)
+
+
+@pytest.mark.parametrize("r,s_pad,e,want", [
+    (1, 500, 8, 16), (25, 500, 8, 8), (6, 500, 16, 16), (66, 500, 8, 4),
+    (132, 500, 8, 1),                          # R fits at once: as before
+    (200, 500, 8, 8), (200, 500, 16, 8), (133, 500, 8, 8),
+    (25, 4096, 8, 8), (25, 4096, 16, 8), (1000, 20, 8, 2)])    # waves
+def test_launch_plan_wave_rule(r, s_pad, e, want):
+    """The size the plan picks: the largest whose R clusters are held at
+    once where one is (25 x 500: 8, R = 1: 16, as before waves existed;
+    132 x 500: 1, since the card holds 66 clusters of 2 at 1024 threads a
+    block); else the least waves x ``STEP_US`` (200 x 500: 8, the fastest
+    of the on-card sweep at that shape)."""
+    plan = ops.launch_plan(r, s_pad, e, N_SMS)
+    assert plan.cluster == want
+    fits = _fits_at_once(r, s_pad, e)
+    assert plan.cluster == (max(fits) if fits else _rule_choice(r, s_pad, e))
+
+
+def test_launch_plan_waves_follow_the_cards_count():
+    """Given the card's resident count, the rule weighs waves by it: a
+    card that held 200 clusters of 2 at once would run 200 x 500 in one
+    wave at C = 2 rather than in four at C = 8."""
+    def card(plan):
+        return 200 if plan.cluster == 2 else 50
+    assert ops.launch_plan(200, 500, 8, N_SMS, resident=card).cluster == 2
+    assert ops.launch_plan(200, 500, 8, N_SMS,
+                           resident=lambda p: 0 if p.cluster != 4
+                           else 10).cluster == 4
+    with pytest.raises(ValueError, match="holds no cluster"):
+        ops.launch_plan(200, 500, 8, N_SMS, resident=lambda p: 0)
 
 
 def test_workspace_layout():
