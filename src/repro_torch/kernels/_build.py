@@ -26,6 +26,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LOADED: Dict[pathlib.Path, ctypes.CDLL] = {}
+# the compiler's output of each library this process built, by source name
+# (what a source's extra flags ask it to report, e.g. ``-Xptxas=-v``)
+LOGS: Dict[str, str] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +82,7 @@ def build_all(sources: Sequence[KernelSource]) -> None:
             failed.append(f"{src.path.name}:\n{log}")
         else:
             os.replace(tmp, lib)          # atomic: never a partial library
+            LOGS[src.name] = log
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 

@@ -2,7 +2,10 @@
 JAX package: the Pallas ``flash_prefill`` kernel in interpret mode and its
 jnp oracle, on ``tests/test_kernels.py``'s sweep at its tolerances
 (2e-4 float32, 2e-2 bfloat16, times 3), and the port's ``gqa_attention``
-against the reference model's at atol 2e-5 (``test_kernels.py:120``)."""
+against the reference model's at atol 2e-5 (``test_kernels.py:120``).
+Then the CUDA kernel's launch plan (every visible pair walked once,
+heaviest blocks first, shared memory within the card's) and its precision
+scheme (3xTF32 products, emulated, against float64)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,7 +16,7 @@ from repro.kernels.flash_prefill import flash_prefill_ref as jax_prefill_ref
 from repro.kernels.flash_prefill.ops import \
     prefill_attention as jax_prefill_attention
 from repro.models.layers import gqa_attention as jax_gqa_attention
-from repro_torch.kernels.flash_prefill import (flash_prefill,
+from repro_torch.kernels.flash_prefill import (flash_prefill, ops,
                                                prefill_attention)
 from repro_torch.models.layers import gqa_attention
 
@@ -113,3 +116,183 @@ def test_wrapper_rejects_non_cuda_device():
     k = torch.zeros((1, 1, 4, 32), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_prefill(q, k, k)
+
+
+# ------------------------------------------------- the kernel's launch plan
+# The CUDA kernel runs only on the card; its tiling is Python
+# (``launch_plan``) so it is pinned here: which (query row, key) pairs
+# each warpgroup of each block walks, in what order, in how much shared
+# memory.
+
+PLAN_CASES = [case[:4] + case[4:5] + case[7:] for case in CASES] + [
+    (1, 4, 8, 512, 64, None),          # tinyllama-1.1b's admit
+    (1, 8, 4, 512, 128, None),         # llama3-8b's widths
+    (1, 1, 48, 33, 128, None),         # granite-20b's MQA, ragged S
+    (1, 4, 8, 512, 64, 100),           # a window at the serving width
+]
+PLAN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _visible(g, s, window):
+    """(G S, S): row r = (s, g) in (s, g) order sees key t."""
+    pos = np.arange(g * s) // g
+    key = np.arange(s)
+    ok = key[None, :] <= pos[:, None]
+    if window is not None:
+        ok &= key[None, :] > pos[:, None] - window
+    return ok
+
+
+def _plans(b, kh, g, s, hd, window, dtype):
+    """The default plan and every row tile / key tile the kernel takes."""
+    plans = [ops.launch_plan(b, kh, g, s, hd, window, dtype)]
+    for rows in ops.ROWS:
+        for bk in ops.KEY_TILES[dtype]:
+            try:
+                plans.append(ops.launch_plan(b, kh, g, s, hd, window, dtype,
+                                             rows=rows, bk=bk))
+            except ValueError:
+                pass
+    return plans
+
+
+@pytest.mark.parametrize("b,kh,g,s,hd,win", PLAN_CASES)
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+def test_launch_plan_covers_each_visible_pair_once(b, kh, g, s, hd, win,
+                                                   dtype):
+    vis = _visible(g, s, win)
+    for plan in _plans(b, kh, g, s, hd, win, PLAN_DTYPES[dtype]):
+        seen = np.zeros((b, kh, g * s, s), np.int32)
+        for _, bb, hh, r0, r1, t0, t1 in plan.units(b, kh, g, s, win):
+            assert 0 <= r0 < r1 <= g * s and r1 - r0 <= ops.WG_ROWS
+            for t in range(t0, t1 + 1):        # no tile without a visible key
+                assert vis[r0:r1, t * plan.bk:(t + 1) * plan.bk].any(), plan
+            k0, k1 = t0 * plan.bk, min((t1 + 1) * plan.bk, s)
+            seen[bb, hh, r0:r1, k0:k1] += vis[r0:r1, k0:k1]
+        np.testing.assert_array_equal(seen, np.broadcast_to(vis, seen.shape),
+                                      err_msg=str(plan))
+        assert plan.blocks(b, kh) == b * kh * -(-g * s // plan.rows)
+
+
+@pytest.mark.parametrize("b,kh,g,s,hd,win", PLAN_CASES)
+def test_launch_plan_orders_tiles_heaviest_first(b, kh, g, s, hd, win):
+    """Blocks launch in order of their walk, longest first, so the longest
+    walks of the causal triangle start at once.  A block's work is its
+    key tiles (each the same 64-row products, however many of its rows
+    are real), the union of its warpgroups' ranges.  Under a window every
+    walk past the first ``window`` positions spans the window, give or
+    take the one key tile that its alignment adds."""
+    plan = ops.launch_plan(b, kh, g, s, hd, win, torch.float32)
+    first = np.full(plan.blocks(b, kh), np.iinfo(np.int64).max)
+    last = np.full(plan.blocks(b, kh), -1)
+    for blk, _, _, _, _, t0, t1 in plan.units(b, kh, g, s, win):
+        first[blk], last[blk] = min(first[blk], t0), max(last[blk], t1)
+    walk = last - first + 1
+    longest_after = np.maximum.accumulate(walk[::-1])[::-1]
+    assert (walk >= longest_after - (1 if win else 0)).all(), walk
+    assert walk[0] == walk.max() or win
+
+
+@pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
+def test_launch_plan_shared_memory_fits_at_hd_128(dtype):
+    """Every plan the kernel takes at hd = 128 fits the H100's 227 KB a
+    block; a ring that does not fit is refused, not launched."""
+    dt = PLAN_DTYPES[dtype]
+    taken = 0
+    for rows in ops.ROWS:
+        for bk in ops.KEY_TILES[dt]:
+            for stages in range(ops.MIN_STAGES, ops.MAX_STAGES + 1):
+                try:
+                    plan = ops.launch_plan(1, 8, 4, 4096, 128, None, dt,
+                                           rows=rows, bk=bk, stages=stages)
+                except ValueError as err:
+                    assert "shared memory" in str(err)
+                    assert ops.smem_bytes(4 if dt == torch.float32 else 2,
+                                          128, bk, rows, stages) > 232448
+                    continue
+                taken += 1
+                assert plan.smem <= ops.SMEM_LIMIT == 232448
+                assert plan.smem == ops.smem_bytes(
+                    4 if dt == torch.float32 else 2, 128, bk, rows, stages)
+    assert taken >= 1
+    assert ops.launch_plan(1, 8, 4, 4096, 128, None, dt).smem <= 232448
+
+
+def test_launch_plan_choices_at_the_measured_shapes():
+    """The plan's knobs where they were timed on the card: tinyllama's
+    admit takes 64-row blocks of 32-key tiles in a 3-stage ring (two
+    blocks an SM, as many as its 256 blocks need); four admits at once a
+    2-stage ring (three blocks an SM); the long prompt 128-row blocks
+    (two warpgroups share each K/V tile; two 64-row blocks of hd = 128
+    do not fit an SM) in a 2-stage ring; float32 is 3xTF32, bf16 one
+    bf16 product."""
+    serving = ops.launch_plan(1, 4, 8, 512, 64, None, torch.float32)
+    assert (serving.rows, serving.bk, serving.stages) == (64, 32, 3)
+    assert serving.precision == "3xtf32" and ops.resident(serving.smem) == 2
+    batch = ops.launch_plan(4, 4, 8, 512, 64, None, torch.float32)
+    assert (batch.rows, batch.bk, batch.stages) == (64, 32, 2)
+    assert ops.resident(batch.smem) == 3
+    long = ops.launch_plan(1, 8, 4, 4096, 128, None, torch.float32)
+    assert (long.rows, long.bk, long.stages) == (128, 32, 2)
+    assert ops.launch_plan(1, 4, 8, 512, 64, None,
+                           torch.bfloat16).precision == "bf16"
+    with pytest.raises(ValueError, match="key tile"):
+        ops.launch_plan(1, 4, 8, 512, 64, None, torch.bfloat16, bk=32)
+    with pytest.raises(ValueError, match="stages"):
+        ops.launch_plan(1, 4, 8, 512, 64, None, torch.float32, stages=5)
+
+
+# ---------------------------------------------- the precision scheme (3xTF32)
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 fraction bits), nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32``: the mantissa bits below are masked."""
+    bits = x.view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(a, b):
+    """a @ b as the kernel computes a float32 product on the tensor cores:
+    hi = tf32(x), lo = tf32(x - hi); a_lo b_hi + a_hi b_lo + a_hi b_hi,
+    each TF32 product exact in float32, summed in float32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _one_pass_mm(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _attention(q, k, v, mm):
+    s, hd = q.shape
+    scores = mm(q, k.T) * hd ** -0.5
+    ok = torch.ones(s, s, dtype=torch.bool).tril()
+    scores = torch.where(ok, scores, torch.tensor(-1e30, dtype=q.dtype))
+    return mm(torch.softmax(scores, -1), v), torch.where(ok, scores, 0)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_tf32_products_keep_float32_accuracy(hd, seed):
+    """Causal attention with both products in 3xTF32, at scores in the
+    hundreds (as full-width models on the reference's initialisers give),
+    stays within twice the plain float32 version's error against float64,
+    in the scores and in the output; one TF32 pass does not (the test has
+    teeth)."""
+    rng = np.random.default_rng(seed)
+    q, k = (rng.standard_normal((512, hd)) * 6 for _ in range(2))
+    v = rng.standard_normal((512, hd))
+    exact_o, exact_s = _attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  lambda a, b: a @ b)
+    assert float(exact_s.abs().max()) > 100
+    err = {}
+    for name, mm in (("plain", lambda a, b: a @ b), ("3xtf32", _split_mm),
+                     ("tf32", _one_pass_mm)):
+        o, sc = _attention(*(torch.from_numpy(a).float() for a in (q, k, v)),
+                           mm)
+        err[name] = (float((o.double() - exact_o).abs().max()),
+                     float((sc.double() - exact_s).abs().max()))
+    for i in range(2):
+        assert err["3xtf32"][i] <= 2 * err["plain"][i], err
+        assert err["tf32"][i] > 2 * err["plain"][i], err
