@@ -23,6 +23,9 @@ from typing import Dict, Sequence, Tuple
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# streaming multiprocessors of the card the flags target (H100 SXM), for
+# the launch plans that size a grid to one wave
+CARD_SMS = 132
 
 _LOCK = threading.Lock()
 _LOADED: Dict[pathlib.Path, ctypes.CDLL] = {}

@@ -26,7 +26,7 @@ SOURCE = _build.KernelSource("sinkhorn", CSRC / "sinkhorn.cu")
 FLOOR_SOURCE = _build.KernelSource("sinkhorn_floor",
                                    CSRC / "sinkhorn_floor.cu")
 SMEM_LIMIT = 232448           # dynamic shared memory a block may use (H100)
-CARD_SMS = 132                # streaming multiprocessors (H100 SXM)
+CARD_SMS = _build.CARD_SMS
 TEAM_MAX_R = 32               # a team may take R <= 32 (a row in a warp)
 TEAM_WARPS = 4                # one a scheduler partition
 TEAM_SIZES = (1, 2, 4)
