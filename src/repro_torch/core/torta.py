@@ -1,8 +1,11 @@
 """TORTA scheduler — Algorithm 1 end to end (port of ``repro/core/torta.py``,
 the batch-native path with per-task region sampling).
 
-Phase 1 (macro): EMA forecast, Sinkhorn OT on the device, smoothed A_t,
-then a sampled region per task from the host RNG (the reference's exact
+Phase 1 (macro): the demand forecast (EMA, or a trained predictor on the
+device, optionally corrupted by Dirichlet noise from the host RNG in the
+reference's place), Sinkhorn OT on the device, then A_t from a trained
+policy's mean action on the device or by smoothing toward the plan, then
+a sampled region per task from the host RNG (the reference's exact
 draws).  Phase 2 (micro): Eq-6 activation targets, then ONE multi-region
 greedy per slot on the device (``micro_backend="fused"``, the port's
 default), or one greedy per region (``"jax"``, optionally with the fused
@@ -19,6 +22,8 @@ import numpy as np
 from repro_torch.api import BatchDecision
 from repro_torch.core.macro import MacroAllocator
 from repro_torch.core.micro import MicroAllocator
+from repro_torch.core.policy import PolicyNet
+from repro_torch.core.predictor import Predictor
 from repro_torch.obs import runtime as obs_rt
 
 
@@ -29,6 +34,11 @@ class TortaScheduler:
     eta: float = 0.35
     sigma: float = 2.0
     headroom: float = 2.5
+    # trained PPO policy and demand predictor, on ``device``
+    policy_params: Optional[PolicyNet] = None
+    predictor: Optional[Predictor] = None
+    # Fig-12 sweep: corrupt the forecast to a target accuracy
+    prediction_noise: float = 0.0
     # Phase-2 hw+load matrix from the compat_score kernel (host walk)
     use_compat_kernel: bool = False
     # Phase-2 micro backend: "fused" (one multi-region greedy per slot),
@@ -47,6 +57,8 @@ class TortaScheduler:
         backend = self.micro_backend or (
             "pallas" if self.use_compat_kernel else "fused")
         self.macro = MacroAllocator(self.n_regions, eta=self.eta,
+                                    policy_params=self.policy_params,
+                                    predictor=self.predictor,
                                     device=self.device)
         self.micro = MicroAllocator(sigma=self.sigma, headroom=self.headroom,
                                     backend=backend,
@@ -59,21 +71,33 @@ class TortaScheduler:
         self.macro.reset()
         self.micro.reset()
         self.rng = np.random.default_rng(self.seed)
+        self.prediction_log = []
 
     # ------------------------------------------------------------------
 
     def _macro_step(self, obs, demand: np.ndarray) -> np.ndarray:
-        """Phase-1 macro computation: predict next-slot demand and solve
-        for A_t."""
+        """Phase-1 macro computation: predict next-slot demand, corrupt it
+        if asked, log it, and solve for A_t."""
         with obs_rt.span("macro.phase1"):
-            predicted = self.macro.predict_next(demand)
+            r = self.n_regions
+            q_norm = obs.queue_tasks / max(float(obs.queue_tasks.max()),
+                                           1.0)
+            predicted = self.macro.predict_next(demand, obs.utilization,
+                                                q_norm)
+            if self.prediction_noise > 0:
+                noise = self.rng.dirichlet(np.ones(r))
+                predicted = (1 - self.prediction_noise) * predicted \
+                    + self.prediction_noise * noise
+            self.prediction_log.append(np.asarray(predicted))
             # supply = capacity net of existing backlog (temporal load
             # awareness)
             cap = np.maximum(obs.capacities - obs.queue_tasks,
                              0.05 * np.maximum(obs.capacities, 1e-6))
             a = self.macro.allocate(
                 demand=demand, predicted=predicted, capacity=cap,
-                power_cost=obs.power_prices, latency=obs.latency)
+                power_cost=obs.power_prices, latency=obs.latency,
+                queue=obs.queue_s, utilization=obs.utilization,
+                q_max=10.0 * float(cap.sum()) * obs.slot_seconds)
             self._predicted = predicted
         return a
 

@@ -10,10 +10,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.env import obs_dim
 from repro_torch.core.micro_state import LocalityState
 from repro_torch.core.micro_torch import DeviceRings
+from repro_torch.core.policy import Mlp, PolicyNet
+from repro_torch.core.predictor import Predictor
 from repro_torch.models.model import param_descs
-from repro_torch.models.params import check_tree
+from repro_torch.models.params import ParamDesc, check_tree
 from repro_torch.sim.state import ClusterState
 
 _DTYPES = {"region_ptr": np.int64, "power_price": np.float64,
@@ -84,3 +87,51 @@ def model_params_from_arrays(cfg, tree, *, device="cuda") -> dict:
         return torch.tensor(np.asarray(t), dtype=torch.float32,
                             device=device)
     return convert(tree)
+
+
+def _mlp_descs(mlp: Mlp) -> dict:
+    """The reference's ``[{"w": (in, out), "b": (out,)}, ...]`` layer list
+    of ``mlp``, as descriptors keyed by layer index."""
+    return {str(i): {"w": ParamDesc(tuple(layer.weight.shape[::-1])),
+                     "b": ParamDesc(tuple(layer.bias.shape))}
+            for i, layer in enumerate(mlp.layers)}
+
+
+def _load_mlp(mlp: Mlp, layers, path: str) -> None:
+    """Copy a reference layer list into ``mlp`` (``w`` transposed into
+    ``nn.Linear.weight``); raises on a missing key or a wrong shape."""
+    if not isinstance(layers, (list, tuple)):
+        raise ValueError(f"parameter tree {path or '/'}: a list of layers "
+                         f"expected, got {type(layers).__name__}")
+    tree = {str(i): layer for i, layer in enumerate(layers)}
+    check_tree(_mlp_descs(mlp), tree, path)
+    with torch.no_grad():
+        for layer, arrays in zip(mlp.layers, layers):
+            layer.weight.copy_(torch.tensor(
+                np.asarray(arrays["w"], np.float32).T))
+            layer.bias.copy_(torch.tensor(
+                np.asarray(arrays["b"], np.float32)))
+
+
+def policy_params_from_arrays(tree, n_regions: int, *,
+                              device="cuda") -> PolicyNet:
+    """The port's ``PolicyNet`` from the reference's ``init_policy``
+    pytree (``{"policy": [...], "value": [...]}``, each layer ``{"w":
+    (in, out), "b": (out,)}``) given as numpy arrays."""
+    net = PolicyNet(obs_dim(n_regions), n_regions, resolve_device(device))
+    if not isinstance(tree, dict) or set(tree) != {"policy", "value"}:
+        raise ValueError(f"parameter tree /: keys "
+                         f"{sorted(tree) if isinstance(tree, dict) else tree}"
+                         f", expected ['policy', 'value']")
+    _load_mlp(net.policy, tree["policy"], "/policy")
+    _load_mlp(net.value, tree["value"], "/value")
+    return net
+
+
+def predictor_params_from_arrays(tree, n_regions: int, *,
+                                 device="cuda") -> Predictor:
+    """The port's ``Predictor`` from the reference's ``init_predictor``
+    layer list given as numpy arrays."""
+    net = Predictor(n_regions, resolve_device(device))
+    _load_mlp(net, tree, "")
+    return net

@@ -1,5 +1,6 @@
 """Evaluation metrics (port of ``repro/sim/metrics.py``): response time,
-load balance (Eq 11), total cost, switch counts."""
+load balance (Eq 11), total cost, switch counts, prediction accuracy
+(Eq 12)."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,6 +28,13 @@ def load_balance_coefficient(utils: np.ndarray) -> float:
         return 1.0
     cv = float(np.std(utils)) / mean
     return 1.0 / (1.0 + cv)
+
+
+def prediction_accuracy(pred: np.ndarray, actual: np.ndarray,
+                        eps: float = 1e-6) -> float:
+    """Eq 12: PA = exp(-mean_t |F_pred - F_actual| / (F_actual + eps))."""
+    rel = np.abs(pred - actual) / (np.abs(actual) + eps)
+    return float(np.exp(-np.mean(rel)))
 
 
 @dataclasses.dataclass

@@ -3,6 +3,7 @@ nor the JAX package, its entry points default to the card and raise
 without one, and the constants it copied equal the reference's."""
 import ast
 import dataclasses
+import inspect
 import os
 import pathlib
 import subprocess
@@ -15,13 +16,17 @@ import torch
 import repro.configs as ref_configs
 import repro.core.env as ref_env
 import repro.core.micro as ref_micro
+import repro.core.policy as ref_policy
+import repro.core.predictor as ref_predictor
 import repro.kernels.compat_score.fused as ref_fused
 import repro.kernels.compat_score.kernel as ref_compat
 import repro.sim.cluster as ref_cluster
 import repro.sim.state as ref_state
 import repro.workload.batch as ref_batch
 import repro_torch.configs as configs
+import repro_torch.core.env as env
 import repro_torch.core.micro as micro
+import repro_torch.core.policy as policy
 import repro_torch.core.predictor as predictor
 import repro_torch.kernels.compat_score.ref as compat
 import repro_torch.sim.cluster as cluster
@@ -29,8 +34,13 @@ import repro_torch.sim.state as state
 import repro_torch.workload.batch as batch
 from repro_torch.core.macro import MacroAllocator
 from repro_torch.core.micro import MicroAllocator
+from repro_torch.core.ppo import PPOTrainer
+from repro_torch.core.theory import estimate_k0_from_reactive
 from repro_torch.core.torta import TortaScheduler
-from repro_torch.interop import model_params_from_arrays, rings_from_arrays
+from repro_torch.interop import (model_params_from_arrays,
+                                 policy_params_from_arrays,
+                                 predictor_params_from_arrays,
+                                 rings_from_arrays)
 from repro_torch.models import Model
 from repro_torch.serving import Replica, ServingCluster
 from repro_torch.sim.engine import Engine
@@ -92,6 +102,20 @@ def _engine_args():
     return Topology("t2", 2, 10, lat), cs, src
 
 
+def _rl_arrays(r=3):
+    """(capacity, power cost, latency, traffic) of a 3-region env."""
+    return (np.full(r, 40.0), np.ones(r), np.full((r, r), 10.0),
+            np.full((8, r), 30.0))
+
+
+def _nets(r=3):
+    """A policy and a predictor on the CPU (the card's are refused
+    earlier)."""
+    return (policy.init_policy(torch.Generator().manual_seed(0),
+                               env.obs_dim(r), r),
+            predictor.init_predictor(torch.Generator().manual_seed(1), r))
+
+
 ENTRY_POINTS = {
     "TortaScheduler": lambda: TortaScheduler(3),
     "TortaScheduler(jax)": lambda: TortaScheduler(
@@ -102,6 +126,20 @@ ENTRY_POINTS = {
     "hw_load_matrix(pallas)": lambda: micro.hw_load_matrix(
         np.ones((2, 8)), np.ones((3, 8)), backend="pallas"),
     "MacroAllocator": lambda: MacroAllocator(3),
+    "MacroAllocator(policy)": lambda: MacroAllocator(
+        3, policy_params=_nets()[0], predictor=_nets()[1]),
+    "TortaScheduler(policy)": lambda: TortaScheduler(
+        3, policy_params=_nets()[0], predictor=_nets()[1],
+        prediction_noise=0.3),
+    "PredictorTrainer": lambda: predictor.PredictorTrainer(3),
+    "PPOTrainer": lambda: PPOTrainer(
+        env.make_env_params(*_rl_arrays(), device="cpu"), 3),
+    "make_env_params": lambda: env.make_env_params(*_rl_arrays()),
+    "estimate_k0_from_reactive": lambda: estimate_k0_from_reactive(
+        3, _rl_arrays()[3], *_rl_arrays()[:3]),
+    "policy_params_from_arrays": lambda: policy_params_from_arrays({}, 3),
+    "predictor_params_from_arrays": lambda: predictor_params_from_arrays(
+        [], 3),
     "MicroAllocator": lambda: MicroAllocator(),
     "Engine": lambda: Engine(*_engine_args(),
                              TortaScheduler(2, device="cpu")),
@@ -155,6 +193,21 @@ def test_copied_constant_equals_reference(port, ref, name):
         assert got.dtype == want.dtype
     else:
         assert got == want
+
+
+RL_CONSTANTS = {
+    "env.K_HIST": (env.K_HIST, ref_env.K_HIST),
+    "predictor.K_HIST": (predictor.K_HIST, ref_predictor.K_HIST),
+    "policy.HIDDEN": (policy.HIDDEN, ref_policy.HIDDEN),
+    "predictor.HIDDEN": (predictor.HIDDEN, inspect.signature(
+        ref_predictor.init_predictor).parameters["hidden"].default),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RL_CONSTANTS))
+def test_copied_rl_constant_equals_reference(name):
+    got, want = RL_CONSTANTS[name]
+    assert got == want
 
 
 def test_copied_cluster_builder_matches_reference():

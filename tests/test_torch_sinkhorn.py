@@ -80,14 +80,16 @@ def test_macro_allocator_matches_reference_kernel_route():
         if step == 6:
             cap[:3] = 0.05                       # supply shock: snap to P*
         p_ref = ref.predict_next(demand, np.zeros(r), np.zeros(r))
-        p_port = port.predict_next(demand)
+        p_port = port.predict_next(demand, np.zeros(r), np.zeros(r))
         np.testing.assert_array_equal(p_port, p_ref)
         a_ref = ref.allocate(demand=demand, predicted=p_ref, capacity=cap,
                              power_cost=power, latency=lat,
                              queue=np.zeros(r), utilization=np.zeros(r),
                              q_max=1.0)
         a_port = port.allocate(demand=demand, predicted=p_port, capacity=cap,
-                               power_cost=power, latency=lat)
+                               power_cost=power, latency=lat,
+                               queue=np.zeros(r), utilization=np.zeros(r),
+                               q_max=1.0)
         np.testing.assert_allclose(a_port, a_ref, atol=1e-6, rtol=0,
                                    err_msg=f"call {step}")
     assert sinkhorn_plan.launches == launches   # CPU: plain version only
@@ -144,13 +146,14 @@ def test_launch_plan_any_r(r):
     assert plan.smem == _shared_bytes(plan, r) <= ops.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("b", [2, 8, 64])
+@pytest.mark.parametrize("b", [2, 8, 64, 160])
 @pytest.mark.parametrize("r", [25, 200, 1000])
 def test_launch_plan_batched(b, r):
     """One team or one cluster a problem: B changes only the device
     workspace, which holds every block's slabs, unless at R <= 32 the B
     clusters' blocks would outnumber the card's SMs: then a team of 4
-    warps a problem (at B = 64, R = 25)."""
+    warps a problem (at B = 64, R = 25, and at the OT plans of 160
+    training slots, B = 160)."""
     one, plan = ops.launch_plan(1, r), ops.launch_plan(b, r)
     if r <= 32 and b * one.cluster > ops.CARD_SMS:
         assert plan == ops.launch_plan(1, r, warps=4)
@@ -164,7 +167,7 @@ def test_launch_plan_batched(b, r):
     (1, 1, "team"), (64, 1, "team"), (1, 2, "cluster"), (64, 8, "cluster"),
     (64, 16, "cluster"), (64, 20, "team"), (33, 25, "cluster"),
     (34, 25, "team"), (8, 32, "cluster"), (64, 32, "team"),
-    (64, 33, "cluster")])
+    (64, 33, "cluster"), (160, 25, "team")])
 def test_launch_plan_form_by_blocks_and_sms(b, r, form):
     """The team where the card measured it faster than the cluster: at R
     = 1, and at R <= 32 once the B problems' blocks (C = ceil(R / 8)
@@ -334,13 +337,15 @@ def test_macro_allocator_matches_reference_beyond_old_cap():
         demand = rng.poisson(30.0, r).astype(np.float64)
         cap = rng.uniform(5.0, 60.0, r)
         p_ref = ref.predict_next(demand, np.zeros(r), np.zeros(r))
-        p_port = port.predict_next(demand)
+        p_port = port.predict_next(demand, np.zeros(r), np.zeros(r))
         a_ref = ref.allocate(demand=demand, predicted=p_ref, capacity=cap,
                              power_cost=power, latency=lat,
                              queue=np.zeros(r), utilization=np.zeros(r),
                              q_max=1.0)
         a_port = port.allocate(demand=demand, predicted=p_port, capacity=cap,
-                               power_cost=power, latency=lat)
+                               power_cost=power, latency=lat,
+                               queue=np.zeros(r), utilization=np.zeros(r),
+                               q_max=1.0)
         assert a_port.shape == (r, r)
         np.testing.assert_allclose(a_port, a_ref, atol=1e-6, rtol=0,
                                    err_msg=f"call {step}")
