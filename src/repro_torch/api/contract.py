@@ -7,11 +7,17 @@ optional per-region activation channel (Eq 6 targets), given as a
 ``{region: n_active}`` dict or an ``(R,)`` array where a negative entry
 means "no target".  Channels may be torch tensors (on any device);
 :meth:`BatchDecision.to_host` is their one sync point.
+
+:class:`SlotDecision` (the per-task-id dict of legacy ``schedule()``
+methods) survives for the adapter: :func:`schedule_via_batch` lets a
+``schedule()`` method delegate to the batch path in one line, and the two
+conversion helpers translate decisions between the shapes.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Protocol, Union, runtime_checkable
+from typing import (Any, Dict, List, Optional, Protocol, Tuple, Union,
+                    runtime_checkable)
 
 import numpy as np
 import torch
@@ -120,6 +126,15 @@ class BatchDecision:
         return self
 
 
+@dataclasses.dataclass
+class SlotDecision:
+    """Object-path decision shape (kept for the adapter and legacy code):
+    ``task.id -> (region, server-in-region)``, ``None`` = buffer."""
+
+    assignments: Dict[int, Optional[Tuple[int, int]]]
+    activation: Optional[Dict[int, int]] = None
+
+
 @runtime_checkable
 class Scheduler(Protocol):
     """The one scheduling contract the engine drives."""
@@ -129,3 +144,49 @@ class Scheduler(Protocol):
     def reset(self) -> None: ...
 
     def schedule_batch(self, obs: Any, batch: Any) -> BatchDecision: ...
+
+
+# ---------------------------------------------------------------------------
+# decision conversions (adapter + legacy shims)
+# ---------------------------------------------------------------------------
+
+
+def batch_to_slot_decision(decision: BatchDecision, batch) -> SlotDecision:
+    """``BatchDecision`` -> per-task-id ``SlotDecision`` (rows are keyed by
+    the batch's task ids)."""
+    decision.to_host()
+    region, server, ids = decision.region, decision.server, batch.ids
+    assignments: Dict[int, Optional[Tuple[int, int]]] = {}
+    for i in range(len(batch)):
+        ridx = int(region[i])
+        assignments[int(ids[i])] = ((ridx, int(server[i]))
+                                    if ridx >= 0 else None)
+    activation = decision.activation
+    if activation is not None and not isinstance(activation, dict):
+        activation = decision.activation_targets(
+            np.asarray(activation).shape[0])
+    return SlotDecision(assignments=assignments, activation=activation)
+
+
+def slot_to_batch_decision(decision: SlotDecision, batch) -> BatchDecision:
+    """``SlotDecision`` -> ``BatchDecision`` over ``batch``'s rows (tasks
+    missing from the assignment dict are buffered)."""
+    n = len(batch)
+    region = np.full(n, -1, np.int32)
+    server = np.full(n, -1, np.int32)
+    get = decision.assignments.get
+    ids = batch.ids
+    for i in range(n):
+        tgt = get(int(ids[i]))
+        if tgt is not None:
+            region[i], server[i] = int(tgt[0]), int(tgt[1])
+    return BatchDecision(region=region, server=server,
+                         activation=decision.activation)
+
+
+def schedule_via_batch(scheduler: Scheduler, obs, tasks: List) -> SlotDecision:
+    """``schedule()`` shim: pack legacy ``Task`` objects into a
+    ``TaskBatch``, run the batch path, translate back."""
+    from repro_torch.workload.batch import TaskBatch
+    batch = TaskBatch.from_tasks(tasks)
+    return batch_to_slot_decision(scheduler.schedule_batch(obs, batch), batch)

@@ -3,8 +3,11 @@ batch-native loop).
 
 The fleet lives in a struct-of-arrays ``ClusterState``, demand arrives as
 ``TaskBatch`` arrays, and the scheduler answers each slot with a
-``BatchDecision`` (``schedule_batch(obs, batch)``).  Servers that receive
-a single task this slot are applied in one whole-array pass; same-server
+``BatchDecision`` (``schedule_batch(obs, batch)``); legacy ``schedule()``
+schedulers are wrapped in ``api.LegacySchedulerAdapter``, and anything
+implementing neither contract raises at construction.  Servers that
+receive a single task this slot are applied in one whole-array pass;
+same-server
 conflicts walk sequentially on the host (a task's wait depends on the
 queue its same-server predecessors left behind), and slots in which a
 targeted server went inactive replay the per-task resolution loop.
@@ -25,7 +28,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from repro_torch import resolve_device
-from repro_torch.api import BatchDecision
+from repro_torch.api import BatchDecision, ensure_batch_scheduler
 from repro_torch.obs import Counters
 from repro_torch.obs import runtime as obs_rt
 from repro_torch.sim.cluster import COLD_START_S, SWITCH_POWER_FRAC, Cluster
@@ -65,6 +68,8 @@ class Engine:
                  slot_seconds: float = 45.0,
                  drop_after_slots: float = 12.0,
                  failures: Optional[List[FailureEvent]] = None,
+                 seed: int = 0,       # the reference's; the loop draws nothing
+                 batch_mode: Optional[bool] = None,
                  step_backend: str = "torch",
                  device="cuda"):
         self.device = resolve_device(device)
@@ -72,12 +77,11 @@ class Engine:
         self.state = (cluster if isinstance(cluster, ClusterState)
                       else ClusterState.from_cluster(cluster))
         self.source = as_source(workload)
-        if not callable(getattr(scheduler, "schedule_batch", None)):
-            raise TypeError(
-                f"{type(scheduler).__name__} does not implement the "
-                "batch-native scheduler contract (name, reset(), "
-                "schedule_batch(obs, batch) -> BatchDecision)")
-        self.scheduler = scheduler
+        # one contract: batch-native schedulers pass through, legacy
+        # schedule()-style ones are wrapped; batch_mode=False forces the
+        # adapter (the switch for A/B-ing the two call shapes)
+        self.scheduler = ensure_batch_scheduler(
+            scheduler, force_adapter=(batch_mode is False))
         if step_backend not in ("numpy", "torch"):
             raise ValueError(f"unknown step backend: {step_backend!r}")
         self.step_backend = step_backend

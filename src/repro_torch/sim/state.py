@@ -86,6 +86,11 @@ class ClusterState:
         return slice(int(self.region_ptr[ridx]),
                      int(self.region_ptr[ridx + 1]))
 
+    @property
+    def region_of(self) -> np.ndarray:
+        """(S,) region index of each server."""
+        return np.repeat(np.arange(self.n_regions), self.region_sizes())
+
     # ----------------------------------------------------------- reductions
 
     def _segsum(self, values: np.ndarray) -> np.ndarray:

@@ -6,12 +6,12 @@ per-model work/memory/kind lookups are precomputed catalog arrays.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 
 from repro_torch.sim.cluster import task_profile
-from repro_torch.sim.state import KIND_IDS, MODEL_NAMES, model_id
+from repro_torch.sim.state import KIND_IDS, KINDS, MODEL_NAMES, model_id
 
 EMBED_DIM = 8
 
@@ -21,6 +21,21 @@ MODEL_MEM_GB = np.array([task_profile(m)[1] for m in MODEL_NAMES],
                         np.float64)
 MODEL_KIND_ID = np.array([KIND_IDS[task_profile(m)[2]] for m in MODEL_NAMES],
                          np.int8)
+
+
+def group_rows(keys: np.ndarray):
+    """Yield ``(gi, key, rows)`` per distinct key over a per-row key array,
+    in order of each key's FIRST OCCURRENCE; ``rows`` preserves original
+    row order and ``gi`` indexes the sorted-unique key.  One argsort
+    total."""
+    keys = np.asarray(keys)
+    uniq, first, inverse = np.unique(keys, return_index=True,
+                                     return_inverse=True)
+    starts = np.concatenate(
+        ([0], np.cumsum(np.bincount(inverse, minlength=uniq.size))))
+    grouped = np.argsort(inverse, kind="stable")
+    for gi in np.argsort(first):
+        yield int(gi), uniq[gi], grouped[starts[gi]:starts[gi + 1]]
 
 
 def zipf_model_mix(exponent: float = 1.4) -> np.ndarray:
@@ -76,6 +91,19 @@ class TaskBatch:
         """Row subset (fancy index or boolean mask)."""
         return TaskBatch(**{f.name: getattr(self, f.name)[idx]
                             for f in dataclasses.fields(self)})
+
+    def to_tasks(self) -> List:
+        """Legacy ``Task`` objects, one a row (the object path only)."""
+        from repro_torch.workload.legacy import Task
+        return [Task(id=int(self.ids[i]), origin=int(self.origin[i]),
+                     model=MODEL_NAMES[int(self.model_idx[i])],
+                     kind=KINDS[int(self.kind_id[i])],
+                     work_s=float(self.work_s[i]),
+                     mem_gb=float(self.mem_gb[i]),
+                     deadline_slot=int(self.deadline_slot[i]),
+                     arrival_slot=int(self.arrival_slot[i]),
+                     embed=self.embeds[i])
+                for i in range(len(self))]
 
     @classmethod
     def from_tasks(cls, tasks: Sequence,

@@ -4,7 +4,8 @@
 ``TaskBatch`` per slot with vectorized draws from a per-``(seed, slot)``
 RNG, the reference's exact draw order.  ``as_source`` adapts a legacy
 object ``Workload`` to the engine's demand-source contract
-(``n_slots`` / ``n_regions`` / ``traffic`` / ``slot_batch(t)``).
+(``n_slots`` / ``n_regions`` / ``traffic`` / ``slot_batch(t)``);
+``to_legacy_workload`` goes the other way.
 """
 from __future__ import annotations
 
@@ -73,6 +74,12 @@ class StreamingWorkload:
             deadline_slot=deadline.astype(np.int64),
             arrival_slot=np.full(n, t, np.int64), embeds=embeds)
 
+    def materialize(self) -> Workload:
+        """Legacy object ``Workload`` with identical per-slot content."""
+        return Workload(traffic=self.traffic,
+                        tasks=[self.slot_batch(t).to_tasks()
+                               for t in range(self.n_slots)])
+
 
 class LegacySource:
     """Demand-source view over a legacy object ``Workload``."""
@@ -102,3 +109,11 @@ def as_source(workload):
     if isinstance(workload, Workload):
         return LegacySource(workload)
     return workload
+
+
+def to_legacy_workload(workload) -> Workload:
+    """The opposite adapter: a streaming source (or a legacy ``Workload``,
+    returned as is) -> legacy object ``Workload``."""
+    if isinstance(workload, Workload):
+        return workload
+    return workload.materialize()

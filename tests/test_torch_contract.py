@@ -1,6 +1,7 @@
-"""The port's contract with the rest of the repo: it imports neither jax
-nor the JAX package, its entry points default to the card and raise
-without one, and the constants it copied equal the reference's."""
+"""The port's contract with the rest of the repo: it imports neither jax,
+the JAX package nor networkx, its entry points default to the card and
+raise without one, and the constants and data it copied equal the
+reference's."""
 import ast
 import dataclasses
 import inspect
@@ -22,6 +23,9 @@ import repro.kernels.compat_score.fused as ref_fused
 import repro.kernels.compat_score.kernel as ref_compat
 import repro.sim.cluster as ref_cluster
 import repro.sim.state as ref_state
+import repro.sim.topology as ref_topology
+import repro.workload as ref_workload
+import repro.workload.trace as ref_trace
 import repro.workload.batch as ref_batch
 import repro_torch.configs as configs
 import repro_torch.core.env as env
@@ -31,6 +35,10 @@ import repro_torch.core.predictor as predictor
 import repro_torch.kernels.compat_score.ref as compat
 import repro_torch.sim.cluster as cluster
 import repro_torch.sim.state as state
+import repro_torch.sim.topology as topology
+import repro_torch.workload as workload
+import repro_torch.workload.trace as trace
+from repro_torch.baselines import ReactiveOTScheduler
 import repro_torch.workload.batch as batch
 from repro_torch.core.macro import MacroAllocator
 from repro_torch.core.micro import MicroAllocator
@@ -51,7 +59,7 @@ from repro_torch.workload import StreamingWorkload
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "repro")
+FORBIDDEN = ("jax", "repro", "networkx")
 
 
 def _imported_roots(path: pathlib.Path):
@@ -72,16 +80,19 @@ def test_port_file_imports_neither_jax_nor_reference(path):
 
 def test_port_imports_with_jax_and_reference_blocked():
     """Every module of the port (and chip_smoke.py) imports in a fresh
-    interpreter in which ``import jax`` and ``import repro`` fail."""
+    interpreter in which ``import jax``, ``import repro`` and
+    ``import networkx`` fail."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['networkx'] = None\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "assert not any(k in ('jax', 'networkx')\n"
+        "               or k.startswith(('jax.', 'repro.', 'networkx.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n")
     env = dict(os.environ,
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
@@ -141,6 +152,7 @@ ENTRY_POINTS = {
     "predictor_params_from_arrays": lambda: predictor_params_from_arrays(
         [], 3),
     "MicroAllocator": lambda: MicroAllocator(),
+    "ReactiveOTScheduler": lambda: ReactiveOTScheduler(3),
     "Engine": lambda: Engine(*_engine_args(),
                              TortaScheduler(2, device="cpu")),
     "Engine(numpy)": lambda: Engine(*_engine_args(),
@@ -239,3 +251,14 @@ def test_copied_config_equals_reference(arch):
         assert (got.hd, got.is_attention_free, got.has_mamba,
                 got.subquadratic) == (want.hd, want.is_attention_free,
                                       want.has_mamba, want.subquadratic)
+
+
+def test_copied_topologies_and_scenarios_equal_reference():
+    assert topology.TOPOLOGY_SPECS == ref_topology.TOPOLOGY_SPECS
+    assert workload.list_scenarios() == ref_workload.list_scenarios()
+
+
+def test_copied_example_trace_is_byte_equal():
+    assert trace.DEFAULT_TRACE != ref_trace.DEFAULT_TRACE
+    assert trace.DEFAULT_TRACE.read_bytes() == \
+        ref_trace.DEFAULT_TRACE.read_bytes()
