@@ -1,0 +1,6 @@
+"""Msgpack checkpoints (port of ``repro/checkpoint``; same file
+format)."""
+from repro_torch.checkpoint.ckpt import (latest_step, load_checkpoint,
+                                         save_checkpoint)
+
+__all__ = ["latest_step", "load_checkpoint", "save_checkpoint"]

@@ -213,7 +213,8 @@ def assign_scan_all(alloc, obs, ridx_rows: np.ndarray, *, mem_t, work, mids,
     out, new_rings = greedy_assign(x)
     alloc._dev_rings = DeviceRings(*new_rings)
     obs_rt.count("micro.host_sync.scan_all")
-    out_np = out.cpu().numpy()             # the one device->host sync
+    with obs_rt.span("micro.host_sync"):
+        out_np = out.cpu().numpy()         # the one device->host sync
     return out_np[ridx_rows, pos].astype(np.int32)
 
 
@@ -258,7 +259,8 @@ def assign_scan(alloc, obs, ridx: int, lstate: LocalityState, *, mem_t,
         x = dataclasses.replace(x, static=static)
     out, new_rings = greedy_assign(x)
     obs_rt.count("micro.host_sync.scan")
-    out_np = out[0, :n].cpu().numpy()
+    with obs_rt.span("micro.host_sync"):
+        out_np = out[0, :n].cpu().numpy()  # waits for the greedy
     _writeback(alloc, lstate, tuple(a[0].cpu().numpy() for a in new_rings))
     return out_np.astype(np.int32)
 

@@ -113,6 +113,29 @@ def _load_mlp(mlp: Mlp, layers, path: str) -> None:
                 np.asarray(arrays["b"], np.float32)))
 
 
+def _mlp_arrays(mlp: Mlp) -> list:
+    """``mlp``'s layers as the reference's ``[{"w": (in, out), "b":
+    (out,)}, ...]`` list of numpy arrays (``w`` transposed back from
+    ``nn.Linear.weight``), copied to the host."""
+    return [{"w": layer.weight.detach().cpu().numpy().T.copy(),
+             "b": layer.bias.detach().cpu().numpy().copy()}
+            for layer in mlp.layers]
+
+
+def policy_params_to_arrays(net: PolicyNet) -> dict:
+    """The reference's ``init_policy`` pytree (``{"policy": [...],
+    "value": [...]}``) of ``net``, as numpy arrays: the inverse of
+    :func:`policy_params_from_arrays`."""
+    return {"policy": _mlp_arrays(net.policy),
+            "value": _mlp_arrays(net.value)}
+
+
+def predictor_params_to_arrays(net: Predictor) -> list:
+    """The reference's ``init_predictor`` layer list of ``net``, as numpy
+    arrays: the inverse of :func:`predictor_params_from_arrays`."""
+    return _mlp_arrays(net)
+
+
 def policy_params_from_arrays(tree, n_regions: int, *,
                               device="cuda") -> PolicyNet:
     """The port's ``PolicyNet`` from the reference's ``init_policy``

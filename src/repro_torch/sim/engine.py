@@ -19,6 +19,11 @@ reference's host path, kept as the oracle.  Both give bitwise-equal
 metrics.  The host keeps what the reference keeps on the host: the
 same-server conflict walk (``engine.fallback.same_server_conflict``) and
 the regional power reduction.
+
+Every run leaves ``engine.run_report`` (summary, counters, span table,
+per-slot series; ``repro_torch.obs``) unless observability is off
+(``obs=False``); the default tier is counters + series, ``obs="trace"``
+adds span timing.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ import numpy as np
 
 from repro_torch import resolve_device
 from repro_torch.api import BatchDecision, ensure_batch_scheduler
-from repro_torch.obs import Counters
+from repro_torch.obs import Counters, make_obs
 from repro_torch.obs import runtime as obs_rt
 from repro_torch.sim.cluster import COLD_START_S, SWITCH_POWER_FRAC, Cluster
 from repro_torch.sim.metrics import MetricsAggregator
@@ -61,6 +66,9 @@ class FailureEvent:
     duration: int
 
 
+_OBS_UNSET = object()      # run(obs=...) default: keep the engine's obs
+
+
 class Engine:
     def __init__(self, topology: Topology,
                  cluster: Union[Cluster, ClusterState],
@@ -71,7 +79,8 @@ class Engine:
                  seed: int = 0,       # the reference's; the loop draws nothing
                  batch_mode: Optional[bool] = None,
                  step_backend: str = "torch",
-                 device="cuda"):
+                 device="cuda",
+                 obs=None):
         self.device = resolve_device(device)
         self.topo = topology
         self.state = (cluster if isinstance(cluster, ClusterState)
@@ -100,9 +109,25 @@ class Engine:
         self._hist_n = 0
         self.pending_batch = TaskBatch.empty()   # cross-slot buffer
         self._failed: Dict[int, int] = {}   # region -> slots remaining
-        self.counters = Counters()          # filled by run()
+        # observability: default-on cheap tier (counters + series); pass
+        # obs=False to disable, obs="trace" for opt-in span timing
+        self.obs = make_obs(obs)
+        self.run_report = None              # RunReport after each run()
 
     # ------------------------------------------------------------------
+
+    @property
+    def counters(self) -> Counters:
+        """The run's counters (``self.obs.counters``); an empty
+        ``Counters`` when observability or its counters are off."""
+        if self.obs is None or self.obs.counters is None:
+            return Counters()
+        return self.obs.counters
+
+    @property
+    def arrivals_hist(self) -> List[np.ndarray]:
+        """Realized per-slot arrival vectors (legacy list-of-rows view)."""
+        return list(self._hist[:self._hist_n])
 
     def _record_arrivals(self, counts: np.ndarray) -> None:
         if self._hist_n == self._hist.shape[0]:
@@ -410,19 +435,41 @@ class Engine:
 
     # ------------------------------------------------------------------
 
-    def run(self, n_slots: Optional[int] = None) -> MetricsAggregator:
+    def run(self, n_slots: Optional[int] = None, *,
+            obs=_OBS_UNSET) -> MetricsAggregator:
         """The engine loop: ``TaskBatch`` in, ``BatchDecision`` out,
-        grouped whole-array apply.  Counters land in ``self.counters``."""
+        grouped whole-array apply.
+
+        ``obs`` overrides the engine's observability for this and later
+        runs (same spec surface as the constructor: ``False`` off,
+        ``"trace"`` adds span timing).  After the run,
+        ``self.run_report`` holds the :class:`repro_torch.obs.RunReport`
+        (None when observability is off); the return value stays the
+        plain ``MetricsAggregator``."""
+        if obs is not _OBS_UNSET:
+            self.obs = make_obs(obs)
         t_total = n_slots or self.source.n_slots
         self.scheduler.reset()
-        with obs_rt.activate(self.counters):
+        if self.obs is not None:
+            self.obs.begin_run(self.state.n_regions, self.slot_s)
+        with obs_rt.activate(self.obs):
             self._run_loop(t_total)
+        if self.obs is not None:
+            self.run_report = self.obs.report(
+                summary=self.metrics.summary(),
+                meta={"n_slots": t_total,
+                      "n_regions": self.state.n_regions,
+                      "n_servers": self.state.n_servers,
+                      "scheduler": getattr(self.scheduler, "name", "?"),
+                      "step_backend": self.step_backend,
+                      "slot_seconds": self.slot_s})
         return self.metrics
 
     def _run_loop(self, t_total: int) -> None:
         st = self.state
         r = st.n_regions
         src = self.source
+        track = self.obs is not None and self.obs.series is not None
         for t in range(t_total):
             self._step_failures(t)
             self._progress_warming()
@@ -438,6 +485,7 @@ class Engine:
             self.pending_batch = TaskBatch.empty()
 
             obs = self._obs(t)
+            n_resp0 = len(self.metrics.response_times)
             with obs_rt.span("schedule.batch"):
                 decision = self.scheduler.schedule_batch(obs, batch)
             decision.validate(len(batch), st)
@@ -453,6 +501,7 @@ class Engine:
 
             # every unassigned row ages out the same way, whether the
             # scheduler buffered it or its server failed resolution
+            n_drop = 0
             left = np.flatnonzero(~assigned)
             if left.size:
                 too_old = (t - batch.arrival_slot[left]) >= self.drop_after
@@ -473,3 +522,26 @@ class Engine:
             with obs_rt.span("engine.slot_close"):
                 self._finish_slot(t, obs, alloc, switch_energy_j,
                                   n_switches, overhead_s)
+            if track:
+                self._observe_slot(t, obs, n_resp0, n_drop)
+
+    def _observe_slot(self, t: int, obs: SlotObs, n_resp0: int,
+                      n_drop: int) -> None:
+        """Feed the per-slot series recorder.  Observation-only: reads
+        values the slot already produced (responses appended this slot,
+        the lb record, arrivals row, the fleet's host mirror) — never
+        engine state it could change, so summary metrics stay bitwise
+        equal to an obs-off run."""
+        st = self.state
+        m = self.metrics
+        responses = np.asarray(m.response_times[n_resp0:], np.float64)
+        act = (st.state == ACTIVE).astype(np.float64)
+        cum = np.concatenate(([0.0], np.cumsum(act)))
+        act_counts = cum[st.region_ptr[1:]] - cum[st.region_ptr[:-1]]
+        saturation = act_counts / np.maximum(st.region_sizes(), 1)
+        self.obs.end_slot(
+            t, responses=responses,
+            queue_tasks=float(obs.queue_tasks.sum()),
+            arrivals=self._hist[self._hist_n - 1],
+            drops=n_drop, saturation=saturation,
+            load_balance=m.lb_by_slot[-1] if m.lb_by_slot else 1.0)

@@ -10,12 +10,15 @@ in its own interpreter, runs one case and writes the results to an
     python tests/_jax_fused_ref.py slice CASE OUT.npz
     python tests/_jax_fused_ref.py scan R SPR SEED FUSED OUT.npz
     python tests/_jax_fused_ref.py route CASE BACKEND FUSED SLOTS OUT.npz
+    python tests/_jax_fused_ref.py spans OUT.npz
 
 ``scan`` runs the per-region micro route (``MicroAllocator(backend=
 "jax", fused=FUSED)``) region by region over the randomized sweep and also
 saves each ``fused_score`` matrix it used; ``route`` runs
 ``TortaScheduler(micro_backend=BACKEND, micro_fused_kernel=FUSED)`` on
-``Engine(step_backend="numpy")``.
+``Engine(step_backend="numpy")``; ``spans`` runs the fused route on the
+jitted engine step with ``obs="trace"`` on ``obs_world`` and saves each
+span name's count.
 """
 from __future__ import annotations
 
@@ -28,8 +31,9 @@ import numpy as np
 if not hasattr(jax.experimental, "enable_x64"):
     jax.experimental.enable_x64 = jax.enable_x64
 
-from _torch_port import (SLICE_SLOTS, Recorder, ref_failures, ref_obs,  # noqa: E402
-                         slice_case, sweep_slots)
+from _torch_port import (OBS_SLOTS, SLICE_SLOTS, Recorder,  # noqa: E402
+                         obs_world, ref_failures, ref_obs, slice_case,
+                         sweep_slots)
 
 import repro.kernels.compat_score as compat_score  # noqa: E402
 from repro.core.micro import MicroAllocator  # noqa: E402
@@ -100,6 +104,20 @@ def slice_run(case: str, backend: str = "fused", fused: str = "0",
     return out
 
 
+def spans() -> dict:
+    """Span names and counts of a traced fused run on ``obs_world``."""
+    topo, cs, src, _ = obs_world()
+    eng = Engine(topo, cs.copy(), src,
+                 TortaScheduler(topo.n_regions, seed=0,
+                                micro_backend="fused",
+                                use_sinkhorn_kernel=True),
+                 seed=4, step_backend="jax", obs="trace")
+    eng.run(OBS_SLOTS)
+    rows = eng.run_report.spans
+    return {"names": np.array([row["name"] for row in rows]),
+            "counts": np.array([row["count"] for row in rows], np.int64)}
+
+
 def main(argv) -> None:
     mode, *args, path = argv
     if mode == "greedy":
@@ -108,6 +126,8 @@ def main(argv) -> None:
         result = scan(*(int(a) for a in args))
     elif mode in ("slice", "route"):
         result = slice_run(*args)
+    elif mode == "spans":
+        result = spans()
     else:
         raise SystemExit(f"unknown mode {mode!r}")
     np.savez(path, **result)

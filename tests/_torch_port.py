@@ -157,6 +157,23 @@ def slice_case(name: str) -> SliceCase:
         [])
 
 
+OBS_REGIONS, OBS_SLOTS = 5, 8
+
+
+def obs_world(slots: int = OBS_SLOTS):
+    """``tests/test_obs.py``'s ``_small_world`` (5 regions of 10 servers
+    at 0.4 utilization, diurnal demand): (topology, fleet, workload) of
+    the JAX package, and the port's workload from the same seeds."""
+    from repro_torch.workload import make_source as p_make_source
+    r = OBS_REGIONS
+    topo = synth_topology(r, seed=1)
+    cs = make_cluster_state(r, seed=3, servers_per_region=(10, 11))
+    rate = 0.4 * throughput_per_slot(cs) / r
+    return (topo, cs, make_source("diurnal", slots, r, seed=2,
+                                  base_rate=rate),
+            p_make_source("diurnal", slots, r, seed=2, base_rate=rate))
+
+
 def ref_failures(windows):
     return [FailureEvent(*w) for w in windows]
 

@@ -1,5 +1,6 @@
 """The port's contract with the rest of the repo: it imports neither jax,
-the JAX package nor networkx, its entry points default to the card and
+the JAX package, networkx, msgpack nor ml_dtypes (the H100 machine has
+neither of the last two), its entry points default to the card and
 raise without one, and the constants and data it copied equal the
 reference's."""
 import ast
@@ -21,6 +22,8 @@ import repro.core.policy as ref_policy
 import repro.core.predictor as ref_predictor
 import repro.kernels.compat_score.fused as ref_fused
 import repro.kernels.compat_score.kernel as ref_compat
+import repro.obs as ref_obs
+import repro.obs.series as ref_series
 import repro.sim.cluster as ref_cluster
 import repro.sim.state as ref_state
 import repro.sim.topology as ref_topology
@@ -33,6 +36,8 @@ import repro_torch.core.micro as micro
 import repro_torch.core.policy as policy
 import repro_torch.core.predictor as predictor
 import repro_torch.kernels.compat_score.ref as compat
+import repro_torch.obs as obs
+import repro_torch.obs.series as series
 import repro_torch.sim.cluster as cluster
 import repro_torch.sim.state as state
 import repro_torch.sim.topology as topology
@@ -59,7 +64,7 @@ from repro_torch.workload import StreamingWorkload
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "repro", "networkx")
+FORBIDDEN = ("jax", "repro", "networkx", "msgpack", "ml_dtypes")
 
 
 def _imported_roots(path: pathlib.Path):
@@ -80,19 +85,19 @@ def test_port_file_imports_neither_jax_nor_reference(path):
 
 def test_port_imports_with_jax_and_reference_blocked():
     """Every module of the port (and chip_smoke.py) imports in a fresh
-    interpreter in which ``import jax``, ``import repro`` and
-    ``import networkx`` fail."""
+    interpreter in which ``import jax``, ``import repro``,
+    ``import networkx``, ``import msgpack`` and ``import ml_dtypes``
+    fail."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['repro'] = None\n"
-        "sys.modules['networkx'] = None\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "assert not any(k in ('jax', 'networkx')\n"
-        "               or k.startswith(('jax.', 'repro.', 'networkx.'))\n"
+        f"roots = {FORBIDDEN!r}\n"
+        "assert not any(k.split('.')[0] in roots\n"
         "               for k, v in sys.modules.items() if v is not None)\n")
     env = dict(os.environ,
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
@@ -205,6 +210,25 @@ def test_copied_constant_equals_reference(port, ref, name):
         assert got.dtype == want.dtype
     else:
         assert got == want
+
+
+OBS_CONSTANTS = {
+    "series.DEFAULT_WINDOW": (series.DEFAULT_WINDOW,
+                              ref_series.DEFAULT_WINDOW),
+    "series.PERCENTILES": (series.PERCENTILES, ref_series.PERCENTILES),
+    "Counters.prometheus_text prefix": tuple(
+        inspect.signature(m.Counters.prometheus_text).parameters[
+            "prefix"].default for m in (obs, ref_obs)),
+    "ObsConfig fields": tuple(
+        [(f.name, f.default) for f in dataclasses.fields(m.ObsConfig)]
+        for m in (obs, ref_obs)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OBS_CONSTANTS))
+def test_copied_obs_constant_equals_reference(name):
+    got, want = OBS_CONSTANTS[name]
+    assert got == want
 
 
 RL_CONSTANTS = {
