@@ -4,7 +4,9 @@
 Each architecture has one module ``repro_torch/configs/<id>.py`` exporting
 ``CONFIG: ArchConfig`` with the published dimensions (source cited in the
 module docstring).  ``get_config(name)`` returns it; ``reduced(cfg)``
-returns the small variant of the same family that the CPU tests run.
+returns the small variant of the same family that the CPU tests run;
+``param_count`` / ``active_param_count`` count a config's parameters
+analytically.
 ``tests/test_torch_contract.py`` pins every config, field by field, to
 the reference's.
 """
@@ -136,6 +138,16 @@ def list_archs() -> Sequence[str]:
     return list(ARCH_IDS)
 
 
+def with_sliding_window_variant(cfg: ArchConfig,
+                                window: int = 4096) -> ArchConfig:
+    """The config with a sliding window of ``window`` tokens (unchanged
+    where its own window is as short): full-attention archs run at
+    long_500k this way."""
+    if cfg.sliding_window is not None and cfg.sliding_window <= window:
+        return cfg
+    return replace(cfg, sliding_window=window, name=cfg.name + "+swa")
+
+
 def reduced(cfg: ArchConfig, *, layers: int = 2, d_model: int = 256,
             heads: int = 4, vocab: int = 512) -> ArchConfig:
     """Reduced variant of the same family for CPU smoke tests."""
@@ -175,3 +187,74 @@ def reduced(cfg: ArchConfig, *, layers: int = 2, d_model: int = 256,
         vision=vis,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else None,
     )
+
+
+def param_count(cfg: ArchConfig) -> int:
+    """Analytic parameter count (embedding + layers + head)."""
+    d = cfg.d_model
+    n = 0
+    n += cfg.vocab * d                      # token embedding
+    if not cfg.tie_embeddings:
+        n += cfg.vocab * d                  # lm head
+    for i in range(cfg.num_layers):
+        kind = cfg.block_kind(i)
+        n += d  # pre-norm scale
+        if kind == "attn":
+            hd = cfg.hd
+            n += d * cfg.num_heads * hd          # q
+            n += 2 * d * cfg.num_kv_heads * hd   # k, v
+            n += cfg.num_heads * hd * d          # o
+            if cfg.qkv_bias:
+                n += (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+        else:  # mamba
+            s = cfg.ssm or SSMConfig()
+            d_in = s.expand * d
+            dt_rank = s.dt_rank or -(-d // 16)
+            n += d * 2 * d_in                    # in_proj (x, z)
+            n += s.d_conv * d_in                 # conv1d
+            n += d_in * (dt_rank + 2 * s.d_state)  # x_proj
+            n += dt_rank * d_in + d_in           # dt_proj
+            n += d_in * s.d_state + d_in         # A_log, D
+            n += d_in * d                        # out_proj
+        # FFN
+        n += d  # post-norm scale
+        if cfg.layer_uses_moe(i):
+            m = cfg.moe
+            n += d * m.num_experts               # router
+            n += m.num_experts * 3 * d * m.d_ff_expert
+        elif cfg.d_ff:
+            mult = 3 if cfg.act in ("silu", "gelu_glu") else 2
+            n += mult * d * cfg.d_ff
+    n += d  # final norm
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        for _ in range(e.num_layers):
+            n += 2 * d
+            hd = cfg.hd
+            n += d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+            n += cfg.num_heads * hd * d
+            mult = 3 if cfg.act in ("silu", "gelu_glu") else 2
+            n += mult * d * cfg.d_ff
+        n += d
+        # decoder cross-attention (one per decoder layer)
+        for i in range(cfg.num_layers):
+            hd = cfg.hd
+            n += d + d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd
+            n += cfg.num_heads * hd * d
+    if cfg.vision is not None:
+        n += cfg.vision.embed_dim * d  # projector
+    return n
+
+
+def active_param_count(cfg: ArchConfig) -> int:
+    """Params active per token (MoE: top_k of num_experts)."""
+    if cfg.moe is None:
+        return param_count(cfg)
+    total = param_count(cfg)
+    m = cfg.moe
+    n_moe_layers = sum(1 for i in range(cfg.num_layers)
+                       if cfg.layer_uses_moe(i))
+    per_expert = 3 * cfg.d_model * m.d_ff_expert
+    expert_params = n_moe_layers * m.num_experts * per_expert
+    active_expert = n_moe_layers * m.top_k * per_expert
+    return total - expert_params + active_expert

@@ -75,8 +75,9 @@ def locality_state_from_arrays(mids: np.ndarray, slots: np.ndarray,
 def model_params_from_arrays(cfg, tree, *, device="cuda") -> dict:
     """The port ``Model``'s parameters from a weight tree given as nested
     dicts of numpy arrays, named and shaped as the reference's
-    ``Model.init`` pytree (groups stacked on a leading dim): every leaf
-    copied to ``device`` as float32.  Raises when a key or a shape
+    ``Model.init`` pytree (groups stacked on a leading dim; an MoE
+    position's router and (G, E, D, F) expert tensors included): every
+    leaf copied to ``device`` as float32.  Raises when a key or a shape
     differs from ``models.model.param_descs(cfg)``."""
     device = resolve_device(device)
     check_tree(param_descs(cfg), tree)

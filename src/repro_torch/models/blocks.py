@@ -1,7 +1,6 @@
 """Block assembly: the dense FFN and one "period group" of sublayers, the
-counterpart of ``repro/models/blocks.py``.  Mixture-of-experts layers
-(``repro/models/moe.py``) are not ported yet: a config with ``moe``
-raises."""
+counterpart of ``repro/models/blocks.py``.  The FFN of a position where
+``cfg.layer_uses_moe`` is the mixture of experts (``models/moe.py``)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
@@ -11,6 +10,7 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import act_fn, norm
 from repro_torch.models.params import ParamDesc
 
@@ -53,11 +53,7 @@ def norm_descs(cfg: ArchConfig) -> Dict:
 def sublayer_descs(cfg: ArchConfig) -> Dict[str, Dict]:
     """Param descriptors for one period of sublayers: keys "pos{i}" ->
     {"mixer_norm", "mixer", ["ffn_norm", "ffn"]} (ffn absent when
-    d_ff == 0)."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers (repro/models/moe.py) are "
-            f"not ported yet (ROADMAP queue 1)")
+    d_ff == 0 and the position has no experts)."""
     out = {}
     for i, kind in enumerate(cfg.layer_period):
         sub: Dict[str, Any] = {"mixer_norm": norm_descs(cfg)}
@@ -65,19 +61,26 @@ def sublayer_descs(cfg: ArchConfig) -> Dict[str, Dict]:
             sub["mixer"] = attn_mod.attn_param_descs(cfg)
         else:
             sub["mixer"] = mamba_mod.mamba_param_descs(cfg)
-        if cfg.d_ff:
+        if cfg.layer_uses_moe(i):
+            sub["ffn_norm"] = norm_descs(cfg)
+            sub["ffn"] = moe_mod.moe_param_descs(cfg)
+        elif cfg.d_ff:
             sub["ffn_norm"] = norm_descs(cfg)
             sub["ffn"] = mlp_param_descs(cfg)
         out[f"pos{i}"] = sub
     return out
 
 
-def apply_ffn(sub: Dict, x: torch.Tensor, cfg: ArchConfig
+def apply_ffn(sub: Dict, x: torch.Tensor, cfg: ArchConfig, pos_idx: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Residual FFN sublayer. Returns (x, aux); aux (the MoE balance loss)
-    is 0 without experts."""
+    """Residual FFN sublayer at period position ``pos_idx``. Returns
+    (x, aux); aux (the MoE balance loss) is 0 without experts."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if "ffn" not in sub:
         return x, aux
     h = norm(x, sub["ffn_norm"], cfg.norm_kind, cfg.norm_eps)
-    return x + mlp_forward(sub["ffn"], h, cfg), aux
+    if cfg.layer_uses_moe(pos_idx):
+        y, aux = moe_mod.moe_ffn(sub["ffn"], h, cfg, act_fn(cfg.act))
+    else:
+        y = mlp_forward(sub["ffn"], h, cfg)
+    return x + y, aux

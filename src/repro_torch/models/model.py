@@ -10,8 +10,11 @@ Two entry points:
 The reference's ``lax.scan`` over groups is a Python loop over the stacked
 groups.  Caches keep the reference's layout (a leading group dim, then
 the sublayer index, then the batch) so a request's cache splices into a
-batch slot the same way.  Mixture-of-experts, encoder-decoder (whisper)
-and vision-prefix (paligemma) configs raise until their slices.
+batch slot the same way.  Mixture-of-experts FFNs (mixtral, qwen3-moe,
+jamba's odd positions) sit where ``cfg.layer_uses_moe``; ``forward``
+returns their balance loss summed over layers, ``decode_step`` drops it.
+Encoder-decoder (whisper) and vision-prefix (paligemma) configs raise
+until their slices.
 """
 from __future__ import annotations
 
@@ -55,8 +58,8 @@ def _group(tree: Tree, g: int) -> Tree:
 
 
 class Model(nn.Module):
-    """A decoder-only LM (attention, Mamba or a period of both) holding
-    its parameters.  ``params`` (a nested dict of tensors shaped as
+    """A decoder-only LM (attention, Mamba or a period of both; dense or
+    mixture-of-experts FFNs) holding its parameters.  ``params`` (a nested dict of tensors shaped as
     :func:`param_descs`) is used as given; otherwise float32 parameters
     are drawn from ``generator``, on its device."""
 
@@ -121,7 +124,7 @@ class Model(nn.Module):
                     new["h"].append(hl)
                     new["conv"].append(cs)
                 x = x + y
-                x, a = B.apply_ffn(sub, x, cfg)
+                x, a = B.apply_ffn(sub, x, cfg, i)
                 aux = aux + a
             if return_cache:
                 for k2, v2 in new.items():
@@ -230,7 +233,7 @@ class Model(nn.Module):
                     cache["conv"][gi, im] = cn
                     im += 1
                 x = x + y
-                x, _ = B.apply_ffn(sub, x, cfg)
+                x, _ = B.apply_ffn(sub, x, cfg, i)
         x = norm(x, p["final_norm"], cfg.norm_kind, cfg.norm_eps)
         logits = self._lm_head(p, x)[:, 0]
         cache["pos"] = pos + 1

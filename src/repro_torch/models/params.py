@@ -65,6 +65,22 @@ def init_params(tree: Tree, gen: torch.Generator) -> Tree:
     return {k: init_params(tree[k], gen) for k in sorted(tree)}
 
 
+def _leaves(tree: Tree):
+    if isinstance(tree, ParamDesc):
+        yield tree
+    else:
+        for v in tree.values():
+            yield from _leaves(v)
+
+
+def count_params(tree: Tree) -> int:
+    return sum(math.prod(d.shape) for d in _leaves(tree))
+
+
+def param_bytes(tree: Tree, bytes_per: int = 2) -> int:
+    return count_params(tree) * bytes_per
+
+
 def stack_tree(tree: Tree, g: int) -> Tree:
     """Add a leading group dimension of size g to every descriptor."""
     if isinstance(tree, ParamDesc):

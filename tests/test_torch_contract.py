@@ -277,6 +277,32 @@ def test_copied_config_equals_reference(arch):
                                       want.has_mamba, want.subquadratic)
 
 
+@pytest.mark.parametrize("arch", ref_configs.ARCH_IDS)
+def test_copied_param_counts_equal_reference(arch):
+    """``param_count``, ``active_param_count`` and
+    ``with_sliding_window_variant`` of the published config, its reduced
+    variant and a 4096 / 64-token window variant."""
+    for fn in (lambda m: m.get_config(arch),
+               lambda m: m.reduced(m.get_config(arch)),
+               lambda m: m.with_sliding_window_variant(m.get_config(arch)),
+               lambda m: m.with_sliding_window_variant(
+                   m.reduced(m.get_config(arch)), window=64)):
+        got, want = fn(configs), fn(ref_configs)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert configs.param_count(got) == ref_configs.param_count(want)
+        assert configs.active_param_count(got) == \
+            ref_configs.active_param_count(want)
+
+
+def test_moe_config_defaults_equal_reference():
+    fields = {f.name: f.default for f in dataclasses.fields(configs.MoEConfig)}
+    want = {f.name: f.default
+            for f in dataclasses.fields(ref_configs.MoEConfig)}
+    assert fields == want
+    assert (fields["capacity_factor"], fields["aux_loss_weight"]) == \
+        (1.25, 0.01)
+
+
 def test_copied_topologies_and_scenarios_equal_reference():
     assert topology.TOPOLOGY_SPECS == ref_topology.TOPOLOGY_SPECS
     assert workload.list_scenarios() == ref_workload.list_scenarios()

@@ -1,11 +1,14 @@
 """The port's LM stack against the JAX package's on the same weights: for
-``tinyllama-1.1b``, ``qwen2.5-3b`` and ``falcon-mamba-7b`` at
-``reduced()`` (and the other dense configs, ``llama3-8b`` and
+``tinyllama-1.1b``, ``qwen2.5-3b``, ``falcon-mamba-7b`` and the three
+mixture-of-experts configs (``mixtral-8x7b``, ``qwen3-moe-235b-a22b``,
+``jamba-v0.1-52b``, the last also with its experts replaced by the dense
+FFN) at ``reduced()`` (and the other dense configs, ``llama3-8b`` and
 ``granite-20b``, the latter also with its published 48 query heads to
 one KV head), the JAX ``Model.init`` weights bridged with
 ``interop.model_params_from_arrays`` and the same tokens give the same
 ``forward`` logits, the same cache and the same logits and caches over
-three ``decode_step``s, within 5e-4 (the reference's own decode-vs-prefill
+three ``decode_step``s, and the same MoE balance loss, within 5e-4 (the
+reference's own decode-vs-prefill
 bound, ``tests/test_models_smoke.py:72``) relative to the value's size:
 |got - want| <= 5e-4 (1 + |want|).  The reference's initialisers give
 activations, K/V cache entries and attention scores of 10-100, where
@@ -31,13 +34,10 @@ from repro_torch.interop import model_params_from_arrays
 from repro_torch.models import Model, mamba
 from repro_torch.serving.steps import make_prefill_step, make_serve_step
 
-ARCHS = ["tinyllama-1.1b", "qwen2.5-3b", "falcon-mamba-7b"]
+ARCHS = ["tinyllama-1.1b", "qwen2.5-3b", "falcon-mamba-7b", "mixtral-8x7b",
+         "qwen3-moe-235b-a22b", "jamba-v0.1-52b"]
 TOL = 5e-4
-UNPORTED = {"mixtral-8x7b": "mixture-of-experts",
-            "qwen3-moe-235b-a22b": "mixture-of-experts",
-            "jamba-v0.1-52b": "mixture-of-experts",
-            "whisper-small": "encoder",
-            "paligemma-3b": "vision"}
+UNPORTED = {"whisper-small": "encoder", "paligemma-3b": "vision"}
 
 
 def _pair(arch, **changes):
@@ -76,7 +76,7 @@ def _same_cache(got, want, what):
 SCHEDULES = {"full": ({}, 9, 16), "window": ({"sliding_window": 10}, 9, 16),
              "long_prompt": ({"sliding_window": 8}, 12, 16),
              # jamba's attention + 7 Mamba period, its experts replaced by
-             # the dense FFN (mixture-of-experts is not ported yet)
+             # the dense FFN
              "no_experts": ({"moe": None}, 9, 16),
              # granite's published grouping: 48 query heads to one KV head
              "mqa_48": ({"num_heads": 48, "head_dim": 32}, 9, 16)}
@@ -96,11 +96,15 @@ def test_forward_cache_and_decode_match_reference(arch, schedule):
     ref, params, port = _pair(arch, **changes)
     rng = np.random.default_rng(1)
     toks = rng.integers(0, ref.cfg.vocab, (2, s + 3)).astype(np.int32)
-    want, _, want_cache = ref.forward(params, jnp.asarray(toks[:, :s]),
-                                      return_cache=True, cache_len=cache_len)
+    want, want_aux, want_cache = ref.forward(
+        params, jnp.asarray(toks[:, :s]), return_cache=True,
+        cache_len=cache_len)
     got, aux, cache = port(torch.from_numpy(toks[:, :s]), return_cache=True,
                            cache_len=cache_len)
-    assert float(aux) == 0.0
+    if port.cfg.moe is None:
+        assert float(aux) == float(want_aux) == 0.0
+    else:
+        _close(aux, want_aux, "MoE aux")
     _close(got, want, "forward logits")
     _same_cache(cache, want_cache, "prefill")
     for t in range(s, s + 3):
