@@ -1,7 +1,6 @@
-"""Attention sublayer: QKV projections, RoPE and the KV cache (including
-the rotating sliding-window cache), the counterpart of
-``repro/models/attention.py``.  Cross-attention waits for whisper's
-slice."""
+"""Attention sublayer: QKV projections, RoPE, the KV cache (including
+the rotating sliding-window cache) and encoder-decoder cross-attention,
+the counterpart of ``repro/models/attention.py``."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -45,17 +44,63 @@ def _out_proj(p: Dict, o: torch.Tensor) -> torch.Tensor:
 
 
 def attn_forward(p: Dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ArchConfig):
-    """Full-sequence (prefill) causal self-attention with RoPE and the
-    config's window, through the ``flash_prefill`` kernel; positions:
-    (S,), ``arange(S)`` on every path of the port.  Returns (out, (k, v)),
-    k after RoPE, for the decode cache (the reference's returns out, and
-    its ``Model._attn`` both)."""
+                 cfg: ArchConfig, *, causal: bool = True,
+                 use_rope: bool = True):
+    """Full-sequence self-attention; positions: (S,), ``arange(S)`` on
+    every path of the port.  Causal (the decoder's prefill, with the
+    config's window, through the ``flash_prefill`` kernel) or not
+    (whisper's encoder, no window, the plain version); RoPE unless
+    ``use_rope`` is off (whisper's absolute positions).  Returns
+    (out, (k, v)), k after RoPE, for the decode cache (the reference's
+    ``attn_forward`` returns out, its ``Model._attn`` both)."""
     q, k, v = _project_qkv(p, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    o = gqa_attention(q, k, v, window=cfg.sliding_window)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = gqa_attention(q, k, v, causal=causal,
+                      window=cfg.sliding_window if causal else None)
     return _out_proj(p, o), (k, v)
+
+
+def _project_q(p: Dict, x: torch.Tensor) -> torch.Tensor:
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    return q + p["bq"] if "bq" in p else q
+
+
+def cross_attn_cache(p: Dict, kv_src: torch.Tensor) -> Dict:
+    """Cross-attention K/V of the encoder output, computed once a request:
+    {"k", "v"}, each (B, src_len, KH, hd)."""
+    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"])
+    if "bk" in p:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return {"k": k, "v": v}
+
+
+def cross_attn_forward(p: Dict, x: torch.Tensor,
+                       cache: Dict) -> torch.Tensor:
+    """Encoder-decoder cross-attention (no RoPE, no causal mask): every
+    decoder position attends to every encoder position.  Takes the
+    encoder's K/V as :func:`cross_attn_cache` gives them (the reference's
+    takes the encoder output and projects it again, in a prefill that
+    also builds the decode cache)."""
+    o = gqa_attention(_project_q(p, x), cache["k"], cache["v"],
+                      causal=False)
+    return _out_proj(p, o)
+
+
+def cross_attn_decode(p: Dict, x: torch.Tensor,
+                      cache: Dict) -> torch.Tensor:
+    """One decode step's cross-attention over the cached encoder K/V,
+    every source position valid, through the ``flash_decode`` kernel.
+    x: (B, 1, D); cache: :func:`cross_attn_cache`'s, read only."""
+    q = _project_q(p, x)
+    b, src_len = x.shape[0], cache["k"].shape[1]
+    pos = torch.full((b,), src_len, dtype=torch.int32, device=x.device)
+    cache_pos = torch.arange(src_len, device=x.device).expand(b, src_len)
+    o = decode_attention(q, cache["k"], cache["v"], pos, cache_pos)
+    return _out_proj(p, o)
 
 
 # ---------------------------------------------------------------------------
@@ -69,7 +114,8 @@ def kv_cache_len(cfg: ArchConfig, seq_len: int) -> int:
 
 
 def attn_decode_step(p: Dict, x: torch.Tensor, pos: torch.Tensor,
-                     kc: torch.Tensor, vc: torch.Tensor, cfg: ArchConfig
+                     kc: torch.Tensor, vc: torch.Tensor, cfg: ArchConfig, *,
+                     use_rope: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step. x: (B, 1, D); pos: (B,) absolute position of the
     new token; kc/vc: (B, C, KH, hd).  Writes the new K/V into slot
@@ -77,8 +123,9 @@ def attn_decode_step(p: Dict, x: torch.Tensor, pos: torch.Tensor,
     returns (out, kc, vc)."""
     b, c = x.shape[0], kc.shape[1]
     q, k, v = _project_qkv(p, x)
-    q = apply_rope(q, pos[:, None], cfg.rope_theta)
-    k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    if use_rope:
+        q = apply_rope(q, pos[:, None], cfg.rope_theta)
+        k = apply_rope(k, pos[:, None], cfg.rope_theta)
     # torch.remainder is floor-mod like jnp's %: pos = -1 (an empty batch
     # slot) writes slot C - 1 and sees no valid position
     slot = torch.remainder(pos, c)                 # rotating when C < seq

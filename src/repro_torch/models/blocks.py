@@ -50,15 +50,20 @@ def norm_descs(cfg: ArchConfig) -> Dict:
     return d
 
 
-def sublayer_descs(cfg: ArchConfig) -> Dict[str, Dict]:
+def sublayer_descs(cfg: ArchConfig, *, with_cross: bool
+                   ) -> Dict[str, Dict]:
     """Param descriptors for one period of sublayers: keys "pos{i}" ->
-    {"mixer_norm", "mixer", ["ffn_norm", "ffn"]} (ffn absent when
+    {"mixer_norm", "mixer", ["cross_norm", "cross"], ["ffn_norm", "ffn"]}
+    (cross at attention positions of an encoder-decoder; ffn absent when
     d_ff == 0 and the position has no experts)."""
     out = {}
     for i, kind in enumerate(cfg.layer_period):
         sub: Dict[str, Any] = {"mixer_norm": norm_descs(cfg)}
         if kind == "attn":
             sub["mixer"] = attn_mod.attn_param_descs(cfg)
+            if with_cross:
+                sub["cross_norm"] = norm_descs(cfg)
+                sub["cross"] = attn_mod.attn_param_descs(cfg)
         else:
             sub["mixer"] = mamba_mod.mamba_param_descs(cfg)
         if cfg.layer_uses_moe(i):

@@ -84,14 +84,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
-    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+def sinusoidal_rows(positions: torch.Tensor, dim: int) -> torch.Tensor:
+    """Rows ``positions`` (integers, any shape) of the float32 sinusoidal
+    table, each computed as the table computes it: (..., dim)."""
+    pos = positions.to(torch.float32)[..., None]
     div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
-                                 device=device) * (-math.log(10000.0) / dim))
-    pe = torch.zeros((length, dim), dtype=torch.float32, device=device)
-    pe[:, 0::2] = torch.sin(pos * div)
-    pe[:, 1::2] = torch.cos(pos * div)
-    return pe
+                                 device=positions.device)
+                    * (-math.log(10000.0) / dim))
+    ang = pos * div
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).flatten(-2)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    """The (length, dim) table: sin at even columns, cos at odd."""
+    return sinusoidal_rows(torch.arange(length, device=device), dim)
 
 
 # ---------------------------------------------------------------------------
@@ -107,13 +113,15 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Sk, KH, hd) -> (B, Sq, H, hd).
 
-    Causal self-attention over a whole sequence (no positions given, so
-    both are ``arange(S)``; no prefix, no key mask) goes through the
-    ``flash_prefill`` kernel.  Everything else (explicit positions,
-    non-causal, a prefix-LM prefix, ``k_valid``) is the plain version of
-    the reference's masking: it waits for the slices that need it
-    (whisper's encoder and cross-attention, paligemma's vision prefix) and
-    is on no serving path.
+    The route follows the call's arguments.  Causal self-attention over a
+    whole sequence (no positions given, so both are ``arange(S)``; no
+    prefix, no key mask), the decoder's prefill, goes through the
+    ``flash_prefill`` kernel.  Everything else is the plain version of
+    the reference's masking: on the serving path that is whisper's
+    non-causal attention (its encoder's self-attention and the prefill's
+    cross-attention), which the reference computes in XLA too, its Pallas
+    ``flash_prefill`` being causal only.  A non-causal mode of the kernel
+    is a later speed-up.
     """
     if (q_pos is None and k_pos is None and causal and not prefix_len
             and k_valid is None):
@@ -125,7 +133,8 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _attention_plain(q, k, v, q_pos, k_pos, *, causal, window, prefix_len,
                      k_valid) -> torch.Tensor:
-    """The reference's ``gqa_attention`` in one block (no chunking)."""
+    """The reference's ``gqa_attention`` in one block (no chunking), in
+    float32 (float64 for float64 operands)."""
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -148,8 +157,8 @@ def _attention_plain(q, k, v, q_pos, k_pos, *, causal, window, prefix_len,
     if k_valid is not None:
         ok &= k_valid[None, :]
     qr = q.reshape(b, sq, kh, g, hd)
-    s = torch.einsum("bqkgh,bskh->bkgqs", qr.float(), k.float()) * hd ** -0.5
+    s = torch.einsum("bqkgh,bskh->bkgqs", _wide(qr), _wide(k)) * hd ** -0.5
     s = torch.where(ok, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    o = torch.einsum("bkgqs,bskh->bqkgh", p, _wide(v))
     return o.reshape(b, sq, h, hd).to(q.dtype)

@@ -2,10 +2,11 @@
 ``repro/models/model.py``: a repeating period of sublayers over
 ``num_layers // period`` groups with stacked parameters.
 
-Two entry points:
+Three entry points:
 
 - ``forward``      : full sequence (prefill), optional cache return
 - ``decode_step``  : one token against a KV/SSM cache (serving)
+- ``encode``       : whisper's encoder (frame embeddings -> memory)
 
 The reference's ``lax.scan`` over groups is a Python loop over the stacked
 groups.  Caches keep the reference's layout (a leading group dim, then
@@ -13,8 +14,10 @@ the sublayer index, then the batch) so a request's cache splices into a
 batch slot the same way.  Mixture-of-experts FFNs (mixtral, qwen3-moe,
 jamba's odd positions) sit where ``cfg.layer_uses_moe``; ``forward``
 returns their balance loss summed over layers, ``decode_step`` drops it.
-Encoder-decoder (whisper) and vision-prefix (paligemma) configs raise
-until their slices.
+An encoder-decoder config (whisper) takes absolute sinusoidal positions
+in place of RoPE and a cross-attention sublayer after each
+self-attention, its K/V of the encoder output cached as ``ck``/``cv``.
+Vision-prefix configs (paligemma) raise until their slice.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import blocks as B
 from repro_torch.models import mamba as M
-from repro_torch.models.layers import norm
+from repro_torch.models.layers import norm, sinusoidal_rows
 from repro_torch.models.params import (ParamDesc, ParamTree, check_tree,
                                        init_params, stack_tree)
 
@@ -40,14 +43,38 @@ def param_descs(cfg: ArchConfig) -> Tree:
     """The model's parameter descriptors, named and shaped as the
     reference's ``Model.param_descs`` (groups stacked on a leading dim)."""
     n_groups = cfg.num_layers // len(cfg.layer_period)
+    encdec = cfg.encoder is not None
     descs: Dict[str, Any] = {
         "embed": ParamDesc((cfg.vocab, cfg.d_model)),
-        "groups": stack_tree(B.sublayer_descs(cfg), n_groups),
+        "groups": stack_tree(B.sublayer_descs(cfg, with_cross=encdec),
+                             n_groups),
         "final_norm": B.norm_descs(cfg),
     }
     if not cfg.tie_embeddings:
         descs["lm_head"] = ParamDesc((cfg.d_model, cfg.vocab))
+    if encdec:
+        layer = {"attn_norm": B.norm_descs(cfg),
+                 "attn": A.attn_param_descs(cfg),
+                 "ffn_norm": B.norm_descs(cfg),
+                 "ffn": B.mlp_param_descs(cfg)}
+        descs["encoder"] = {
+            "layers": stack_tree(layer, cfg.encoder.num_layers),
+            "final_norm": B.norm_descs(cfg)}
     return descs
+
+
+# the reference's decode-step table has this many rows and is indexed by
+# ``pos`` as jnp indexes: a negative row counts from the end, a row past
+# the end reads the last
+PE_ROWS = 1 << 16
+
+
+def decode_positions(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """The absolute position rows a decode step adds: (B, dim) float32,
+    the rows of the reference's ``sinusoidal_positions(PE_ROWS, dim)[pos]``
+    computed directly (an empty slot's pos = -1 reads the last row)."""
+    row = torch.where(pos < 0, pos + PE_ROWS, pos).clamp(0, PE_ROWS - 1)
+    return sinusoidal_rows(row, dim)
 
 
 def _group(tree: Tree, g: int) -> Tree:
@@ -58,22 +85,21 @@ def _group(tree: Tree, g: int) -> Tree:
 
 
 class Model(nn.Module):
-    """A decoder-only LM (attention, Mamba or a period of both; dense or
-    mixture-of-experts FFNs) holding its parameters.  ``params`` (a nested dict of tensors shaped as
-    :func:`param_descs`) is used as given; otherwise float32 parameters
-    are drawn from ``generator``, on its device."""
+    """An LM (attention, Mamba or a period of both; dense or
+    mixture-of-experts FFNs; decoder-only or, for whisper, behind an
+    encoder) holding its parameters.  ``params`` (a nested dict of
+    tensors shaped as :func:`param_descs`) is used as given; otherwise
+    float32 parameters are drawn from ``generator``, on its device."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None,
                  params: Optional[Tree] = None):
         super().__init__()
         self.device = resolve_device(device)
-        for part in ("encoder", "vision"):
-            if getattr(cfg, part) is not None:
-                raise NotImplementedError(
-                    f"{cfg.name}: {part} configs (whisper's encoder and "
-                    f"cross-attention, paligemma's vision prefix) are not "
-                    f"ported yet (ROADMAP queue 1)")
+        if cfg.vision is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: vision configs (paligemma's vision prefix) "
+                f"are not ported yet (ROADMAP queue 1)")
         p_len = len(cfg.layer_period)
         if cfg.num_layers % p_len:
             raise ValueError(f"{cfg.name}: {cfg.num_layers} layers, period "
@@ -83,6 +109,9 @@ class Model(nn.Module):
         self.n_groups = cfg.num_layers // p_len
         self.attn_pos = [i for i, k in enumerate(self.period) if k == "attn"]
         self.mamba_pos = [i for i, k in enumerate(self.period) if k == "mamba"]
+        # whisper: absolute sinusoidal positions, no RoPE
+        self.is_encdec = cfg.encoder is not None
+        self.use_rope = not self.is_encdec
         descs = param_descs(cfg)
         if params is None:
             if generator is None:
@@ -92,21 +121,58 @@ class Model(nn.Module):
         self.params = ParamTree(params).to(self.device)
 
     # ------------------------------------------------------------------
+    # Encoder (whisper)
+    # ------------------------------------------------------------------
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames: (B, src_len, d_model) precomputed conv/mel embeddings
+        -> the encoder's output, same shape: sinusoidal positions, then
+        pre-norm layers of non-causal self-attention (no RoPE, no window)
+        and the FFN, then the final norm."""
+        cfg = self.cfg
+        enc = self.params.tree()["encoder"]
+        src_len = frames.shape[1]
+        positions = torch.arange(src_len, device=frames.device)
+        x = frames + sinusoidal_rows(positions, cfg.d_model).to(frames.dtype)
+        for li in range(cfg.encoder.num_layers):
+            lp = _group(enc["layers"], li)
+            h = norm(x, lp["attn_norm"], cfg.norm_kind, cfg.norm_eps)
+            y, _ = A.attn_forward(lp["attn"], h, positions, cfg,
+                                  causal=False, use_rope=False)
+            x = x + y
+            h = norm(x, lp["ffn_norm"], cfg.norm_kind, cfg.norm_eps)
+            x = x + B.mlp_forward(lp["ffn"], h, cfg)
+        return norm(x, enc["final_norm"], cfg.norm_kind, cfg.norm_eps)
+
+    # ------------------------------------------------------------------
     # Forward (prefill)
     # ------------------------------------------------------------------
 
-    def forward(self, tokens: torch.Tensor, *, return_cache: bool = False,
+    def forward(self, tokens: torch.Tensor, *,
+                frames: Optional[torch.Tensor] = None,
+                return_cache: bool = False,
                 cache_len: Optional[int] = None,
                 last_logit_only: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tree]]:
-        """tokens: (B, S). Returns (logits (B, S, V), moe_aux, cache)."""
+        """tokens: (B, S); frames: (B, src_len, d_model), required by an
+        encoder-decoder and encoded first. Returns (logits (B, S, V),
+        moe_aux, cache)."""
         cfg = self.cfg
         p = self.params.tree()
         x = F.embedding(tokens, p["embed"])
+        enc_out = None
+        if self.is_encdec:
+            if frames is None:
+                raise ValueError(f"{cfg.name}: forward needs frames, the "
+                                 f"encoder's input")
+            enc_out = self.encode(frames)
         S = x.shape[1]
         positions = torch.arange(S, device=x.device)
+        if self.is_encdec:
+            x = x + sinusoidal_rows(positions, cfg.d_model).to(x.dtype)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        ys: Dict[str, list] = {"k": [], "v": [], "h": [], "conv": []}
+        ys: Dict[str, list] = {"k": [], "v": [], "h": [], "conv": [],
+                               "ck": [], "cv": []}
         for gi in range(self.n_groups):
             gp = _group(p["groups"], gi)
             new: Dict[str, list] = {k: [] for k in ys}
@@ -115,15 +181,23 @@ class Model(nn.Module):
                 h = norm(x, sub["mixer_norm"], cfg.norm_kind, cfg.norm_eps)
                 if kind == "attn":
                     y, (k, v) = A.attn_forward(sub["mixer"], h, positions,
-                                               cfg)
+                                               cfg, use_rope=self.use_rope)
                     new["k"].append(k)
                     new["v"].append(v)
+                    x = x + y
+                    if self.is_encdec:
+                        h = norm(x, sub["cross_norm"], cfg.norm_kind,
+                                 cfg.norm_eps)
+                        cc = A.cross_attn_cache(sub["cross"], enc_out)
+                        x = x + A.cross_attn_forward(sub["cross"], h, cc)
+                        new["ck"].append(cc["k"])
+                        new["cv"].append(cc["v"])
                 else:
                     y, (hl, cs) = M.mamba_forward(sub["mixer"], h, cfg,
                                                   return_state=True)
                     new["h"].append(hl)
                     new["conv"].append(cs)
-                x = x + y
+                    x = x + y
                 x, a = B.apply_ffn(sub, x, cfg, i)
                 aux = aux + a
             if return_cache:
@@ -155,9 +229,11 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, seq_len: int, *,
                    dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
-        """An empty decode cache: ``pos`` -1, every state 0.  K/V and the
-        conv window in ``dtype`` (default: the parameters' type; the
-        reference defaults to bfloat16), the SSM state in float32."""
+        """An empty decode cache: ``pos`` -1, every state 0.  K/V (and an
+        encoder-decoder's cross-attention ``ck``/``cv``, (G, na, B,
+        src_len, KH, hd)) and the conv window in ``dtype`` (default: the
+        parameters' type; the reference defaults to bfloat16), the SSM
+        state in float32."""
         cfg, dev = self.cfg, self.device
         dtype = dtype or self.params.tree()["embed"].dtype
         c, g = self.cache_len(seq_len), self.n_groups
@@ -168,6 +244,10 @@ class Model(nn.Module):
             shape = (g, na, batch, c, max(cfg.num_kv_heads, 1), cfg.hd)
             cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
             cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+            if self.is_encdec:
+                shape = shape[:3] + (cfg.encoder.src_len,) + shape[4:]
+                cache["ck"] = torch.zeros(shape, dtype=dtype, device=dev)
+                cache["cv"] = torch.zeros(shape, dtype=dtype, device=dev)
         if nm:
             d_in, n, d_conv, _ = M._dims(cfg)
             cache["h"] = torch.zeros((g, nm, batch, d_in, n),
@@ -196,6 +276,8 @@ class Model(nn.Module):
         if "h" in ys:
             cache["h"] = ys["h"].float()
             cache["conv"] = ys["conv"]
+        if "ck" in ys:
+            cache["ck"], cache["cv"] = ys["ck"], ys["cv"]
         cache["pos"] = torch.full((batch,), S, dtype=torch.int32,
                                   device=self.device)
         return cache
@@ -209,11 +291,14 @@ class Model(nn.Module):
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens: (B, 1) -> (logits (B, V), cache).  The cache's tensors
         are updated in place (the reference returns a new pytree) and the
-        same dict is returned, its ``pos`` advanced by one."""
+        same dict is returned, its ``pos`` advanced by one.  An
+        encoder-decoder's ``ck``/``cv`` are read, never written."""
         cfg = self.cfg
         p = self.params.tree()
         pos = cache["pos"]                                  # (B,)
         x = F.embedding(tokens, p["embed"])
+        if self.is_encdec:
+            x = x + decode_positions(pos, cfg.d_model)[:, None].to(x.dtype)
         for gi in range(self.n_groups):
             gp = _group(p["groups"], gi)
             ia = im = 0
@@ -223,7 +308,14 @@ class Model(nn.Module):
                 if kind == "attn":
                     y, _, _ = A.attn_decode_step(
                         sub["mixer"], h, pos, cache["k"][gi, ia],
-                        cache["v"][gi, ia], cfg)
+                        cache["v"][gi, ia], cfg, use_rope=self.use_rope)
+                    x = x + y
+                    if self.is_encdec:
+                        h = norm(x, sub["cross_norm"], cfg.norm_kind,
+                                 cfg.norm_eps)
+                        x = x + A.cross_attn_decode(
+                            sub["cross"], h, {"k": cache["ck"][gi, ia],
+                                              "v": cache["cv"][gi, ia]})
                     ia += 1
                 else:
                     y, hn, cn = M.mamba_decode_step(
@@ -232,7 +324,7 @@ class Model(nn.Module):
                     cache["h"][gi, im] = hn
                     cache["conv"][gi, im] = cn
                     im += 1
-                x = x + y
+                    x = x + y
                 x, _ = B.apply_ffn(sub, x, cfg, i)
         x = norm(x, p["final_norm"], cfg.norm_kind, cfg.norm_eps)
         logits = self._lm_head(p, x)[:, 0]

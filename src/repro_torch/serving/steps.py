@@ -12,12 +12,22 @@ import torch
 from repro_torch.models.model import Model
 
 
+def _model_inputs(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The batch's inputs besides the tokens: whisper's ``frames``.
+    paligemma's ``patches`` raise until the vision prefix is ported."""
+    if "patches" in batch:
+        raise NotImplementedError("a batch with patches (paligemma's "
+                                  "vision prefix) is not ported yet "
+                                  "(ROADMAP queue 1)")
+    return {"frames": batch["frames"]} if "frames" in batch else {}
+
+
 def make_prefill_step(model: Model, cache_len: Optional[int] = None):
     def prefill_step(batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         logits, _, cache = model.forward(
             batch["tokens"], return_cache=True, cache_len=cache_len,
-            last_logit_only=True)
+            last_logit_only=True, **_model_inputs(batch))
         return logits[:, -1], cache
 
     return prefill_step

@@ -294,6 +294,21 @@ def test_copied_param_counts_equal_reference(arch):
             ref_configs.active_param_count(want)
 
 
+def test_whisper_config_equals_reference():
+    """whisper-small, the one encoder-decoder: the fields its encoder,
+    cross-attention and absolute positions turn on, in the port's copy
+    and the reference's, at their published values."""
+    def pin(m):
+        cfg = m.get_config("whisper-small")
+        return (cfg.encoder.num_layers, cfg.encoder.src_len, cfg.num_layers,
+                cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.d_ff,
+                cfg.vocab, cfg.norm_kind, cfg.act, cfg.qkv_bias,
+                cfg.tie_embeddings, cfg.vision)
+    assert pin(configs) == pin(ref_configs) == (
+        12, 1500, 12, 768, 12, 12, 3072, 51865, "layernorm", "gelu", True,
+        False, None)
+
+
 def test_moe_config_defaults_equal_reference():
     fields = {f.name: f.default for f in dataclasses.fields(configs.MoEConfig)}
     want = {f.name: f.default

@@ -37,7 +37,7 @@ from repro_torch.serving.steps import make_prefill_step, make_serve_step
 ARCHS = ["tinyllama-1.1b", "qwen2.5-3b", "falcon-mamba-7b", "mixtral-8x7b",
          "qwen3-moe-235b-a22b", "jamba-v0.1-52b"]
 TOL = 5e-4
-UNPORTED = {"whisper-small": "encoder", "paligemma-3b": "vision"}
+UNPORTED = {"paligemma-3b": "vision"}
 
 
 def _pair(arch, **changes):
@@ -199,14 +199,20 @@ def test_steps_match_reference(arch):
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in UNPORTED])
 def test_decode_matches_prefill(arch):
     """The port's own consistency: the last decode step's logits equal the
-    full forward's at that position (the reference's bound)."""
+    full forward's at that position (the reference's bound); whisper's
+    with the same frames on both."""
     cfg = reduced(get_config(arch))
     model = Model(cfg, device="cpu",
                   generator=torch.Generator().manual_seed(0))
-    toks = torch.from_numpy(np.random.default_rng(5).integers(
-        0, cfg.vocab, (2, 9)).astype(np.int32))
-    full, _, _ = model(toks)
-    _, _, cache = model(toks[:, :8], return_cache=True, cache_len=13)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9)).astype(
+        np.int32))
+    kw = {}
+    if cfg.encoder is not None:
+        kw["frames"] = torch.from_numpy((rng.standard_normal(
+            (2, cfg.encoder.src_len, cfg.d_model)) * 0.02).astype(np.float32))
+    full, _, _ = model(toks, **kw)
+    _, _, cache = model(toks[:, :8], return_cache=True, cache_len=13, **kw)
     logits, _ = model.decode_step(cache, toks[:, 8:9])
     err = (logits - full[:, -1]).abs() / (1 + full[:, -1].abs())
     assert float(err.max()) < TOL

@@ -70,14 +70,16 @@ def _bridge(ref_cluster, cluster):
             params=model_params_from_arrays(cfg, tree, device="cpu"))
 
 
-def _drive(cluster, request_cls, router, seed=0, ticks=70, arrive_until=32):
-    """``serve_e2e.run``'s arrivals and ticks on a given cluster."""
+def _drive(cluster, request_cls, router, seed=0, ticks=70, arrive_until=32,
+           models=MODELS):
+    """``serve_e2e.run``'s arrivals (of ``models``, at its shares) and
+    ticks on a given cluster."""
     rng = np.random.default_rng(seed)
     rid = 0
     for t in range(ticks):
         if t < arrive_until and t % 2 == 0:
             for _ in range(2):
-                m = MODELS[int(rng.choice(len(MODELS), p=[0.5, 0.3, 0.2]))]
+                m = models[int(rng.choice(len(models), p=[0.5, 0.3, 0.2]))]
                 cluster.submit(request_cls(id=rid, model=m,
                                            prompt=rng.integers(0, 255, 16),
                                            max_new=8))
