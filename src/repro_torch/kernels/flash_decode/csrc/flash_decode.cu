@@ -46,6 +46,13 @@
 //    depend on the order the blocks ran in.  When no chunk saw a valid
 //    position the row has none, and the last block averages the row's
 //    whole V cache.
+//  * Head dims 32, 64, 128 and 256 (paligemma-3b's), one instance each.
+//    Every per-thread extent follows from HD: at HD = 256 a float32 row
+//    is 64 pieces, so the V pass has two head groups of 64 threads and
+//    a thread carries 4 of a tile of 8 heads (bfloat16: 32 pieces, four
+//    groups, 2 heads); the merge prefetches 4 chunks' acc either way.
+//    A block's ring at 256 takes 147 KB of shared memory in float32
+//    (one block an SM) and 82 KB in bfloat16 (two) at two stages.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -507,6 +514,7 @@ cudaError_t launch(const Params& p, int hd, int gt, int smem,
     case 32: return launch_hd<T, 32>(p, gt, smem, st);
     case 64: return launch_hd<T, 64>(p, gt, smem, st);
     case 128: return launch_hd<T, 128>(p, gt, smem, st);
+    case 256: return launch_hd<T, 256>(p, gt, smem, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -524,7 +532,8 @@ int flash_decode_smem_bytes(int dtype, int hd, int gt, int chunk,
 
 // q (B, KH, G, hd), k and v (B, C, KH, hd), valid (B, C) int32, o like q;
 // all contiguous, q, k and v 16-byte aligned.  dtype 0: float32, 1:
-// bfloat16 (q, k, v, o).  Any G, hd in {32, 64, 128}; scale is hd^-0.5.
+// bfloat16 (q, k, v, o).  Any G, hd in {32, 64, 128, 256}; scale is
+// hd^-0.5.
 // The plan (ops.decode_plan): gt heads a block, chunks of `chunk`
 // positions (a multiple of 32), `stages` ring buffers, `smem` shared
 // bytes.  ws: B KH ceil(G / gt) ceil(C / chunk) gt (hd + 2) float32;

@@ -20,8 +20,9 @@ from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
 SOURCE = _build.KernelSource(
     "flash_decode",
-    pathlib.Path(__file__).resolve().parent / "csrc" / "flash_decode.cu")
-HEAD_DIMS = (32, 64, 128)
+    pathlib.Path(__file__).resolve().parent / "csrc" / "flash_decode.cu",
+    ("-Xptxas=-v",))
+HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448           # dynamic shared memory a block may use (H100)
 TILE = 32                     # cache positions a tile (kTile)
@@ -87,8 +88,10 @@ def decode_plan(b: int, kh: int, g: int, c: int, hd: int, n_sms: int, *,
     ``n_sms`` SMs: ``head_tile(G)`` heads a block; chunks of whole
     32-position tiles, as short as gives ``BLOCKS_PER_SM`` blocks an SM
     and at most ``MAX_CHUNK`` positions; the most stages, up to
-    ``STAGES``, at which ``RESIDENT`` blocks fit an SM (2 for float32 at
-    hd = 128, 3 else).  ``chunk`` and ``stages`` force a knob (the
+    ``STAGES``, at which ``RESIDENT`` blocks fit an SM, else 2 (2 for
+    float32 at hd = 128 and in both types at hd = 256, where two stages
+    leave room for one block an SM in float32 and two in bfloat16; 3
+    else).  ``chunk`` and ``stages`` force a knob (the
     on-card sweep).  Raises on a plan the kernel cannot run."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_decode: hd={hd}, the kernel takes "

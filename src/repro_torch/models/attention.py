@@ -45,11 +45,12 @@ def _out_proj(p: Dict, o: torch.Tensor) -> torch.Tensor:
 
 def attn_forward(p: Dict, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ArchConfig, *, causal: bool = True,
-                 use_rope: bool = True):
+                 use_rope: bool = True, prefix_len: int = 0):
     """Full-sequence self-attention; positions: (S,), ``arange(S)`` on
     every path of the port.  Causal (the decoder's prefill, with the
-    config's window, through the ``flash_prefill`` kernel) or not
-    (whisper's encoder, no window, the plain version); RoPE unless
+    config's window, through the ``flash_prefill`` kernel; with a
+    ``prefix_len`` > 0, paligemma's prefix-LM mask, the plain version) or
+    not (whisper's encoder, no window, the plain version); RoPE unless
     ``use_rope`` is off (whisper's absolute positions).  Returns
     (out, (k, v)), k after RoPE, for the decode cache (the reference's
     ``attn_forward`` returns out, its ``Model._attn`` both)."""
@@ -58,7 +59,8 @@ def attn_forward(p: Dict, x: torch.Tensor, positions: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     o = gqa_attention(q, k, v, causal=causal,
-                      window=cfg.sliding_window if causal else None)
+                      window=cfg.sliding_window if causal else None,
+                      prefix_len=prefix_len)
     return _out_proj(p, o), (k, v)
 
 

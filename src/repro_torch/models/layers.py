@@ -119,9 +119,11 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``flash_prefill`` kernel.  Everything else is the plain version of
     the reference's masking: on the serving path that is whisper's
     non-causal attention (its encoder's self-attention and the prefill's
-    cross-attention), which the reference computes in XLA too, its Pallas
-    ``flash_prefill`` being causal only.  A non-causal mode of the kernel
-    is a later speed-up.
+    cross-attention) and paligemma's prefill under the prefix-LM mask
+    (its ``prefix_len`` image positions attend to each other both ways),
+    which the reference computes in XLA too, its Pallas ``flash_prefill``
+    being causal only.  A non-causal or prefix mode of the kernel is a
+    later speed-up.
     """
     if (q_pos is None and k_pos is None and causal and not prefix_len
             and k_valid is None):

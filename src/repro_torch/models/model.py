@@ -17,7 +17,9 @@ returns their balance loss summed over layers, ``decode_step`` drops it.
 An encoder-decoder config (whisper) takes absolute sinusoidal positions
 in place of RoPE and a cross-attention sublayer after each
 self-attention, its K/V of the encoder output cached as ``ck``/``cv``.
-Vision-prefix configs (paligemma) raise until their slice.
+A vision-prefix config (paligemma) projects the batch's patch embeddings
+into ``P`` prefix positions before the text, attended to bidirectionally
+(the prefix-LM mask) in the prefill.
 """
 from __future__ import annotations
 
@@ -52,6 +54,8 @@ def param_descs(cfg: ArchConfig) -> Tree:
     }
     if not cfg.tie_embeddings:
         descs["lm_head"] = ParamDesc((cfg.d_model, cfg.vocab))
+    if cfg.vision is not None:
+        descs["vision_proj"] = ParamDesc((cfg.vision.embed_dim, cfg.d_model))
     if encdec:
         layer = {"attn_norm": B.norm_descs(cfg),
                  "attn": A.attn_param_descs(cfg),
@@ -86,20 +90,17 @@ def _group(tree: Tree, g: int) -> Tree:
 
 class Model(nn.Module):
     """An LM (attention, Mamba or a period of both; dense or
-    mixture-of-experts FFNs; decoder-only or, for whisper, behind an
-    encoder) holding its parameters.  ``params`` (a nested dict of
-    tensors shaped as :func:`param_descs`) is used as given; otherwise
-    float32 parameters are drawn from ``generator``, on its device."""
+    mixture-of-experts FFNs; decoder-only, for paligemma behind a vision
+    prefix, or, for whisper, behind an encoder) holding its parameters.
+    ``params`` (a nested dict of tensors shaped as :func:`param_descs`)
+    is used as given; otherwise float32 parameters are drawn from
+    ``generator``, on its device."""
 
     def __init__(self, cfg: ArchConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None,
                  params: Optional[Tree] = None):
         super().__init__()
         self.device = resolve_device(device)
-        if cfg.vision is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: vision configs (paligemma's vision prefix) "
-                f"are not ported yet (ROADMAP queue 1)")
         p_len = len(cfg.layer_period)
         if cfg.num_layers % p_len:
             raise ValueError(f"{cfg.name}: {cfg.num_layers} layers, period "
@@ -149,17 +150,33 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
 
     def forward(self, tokens: torch.Tensor, *,
+                patches: Optional[torch.Tensor] = None,
                 frames: Optional[torch.Tensor] = None,
                 return_cache: bool = False,
                 cache_len: Optional[int] = None,
                 last_logit_only: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Tree]]:
-        """tokens: (B, S); frames: (B, src_len, d_model), required by an
-        encoder-decoder and encoded first. Returns (logits (B, S, V),
-        moe_aux, cache)."""
+        """tokens: (B, S_text); patches: (B, P, embed_dim), required by a
+        vision config, projected into P positions before the text;
+        frames: (B, src_len, d_model), required by an encoder-decoder and
+        encoded first.  Returns (logits (B, S, V), moe_aux, cache) with
+        S = P + S_text: the cache's slots hold the last ``cache_len``
+        (default S) of the S positions, its ``pos`` is S."""
         cfg = self.cfg
         p = self.params.tree()
         x = F.embedding(tokens, p["embed"])
+        prefix_len = 0
+        if cfg.vision is not None:
+            if patches is None:
+                raise ValueError(f"{cfg.name}: forward needs patches, the "
+                                 f"vision prefix's input")
+            pre = torch.einsum("bpe,ed->bpd", patches.to(x.dtype),
+                               p["vision_proj"])
+            x = torch.cat([pre, x], dim=1)
+            prefix_len = patches.shape[1]
+        elif patches is not None:
+            raise ValueError(f"{cfg.name}: patches given to a config "
+                             f"without a vision prefix")
         enc_out = None
         if self.is_encdec:
             if frames is None:
@@ -181,7 +198,8 @@ class Model(nn.Module):
                 h = norm(x, sub["mixer_norm"], cfg.norm_kind, cfg.norm_eps)
                 if kind == "attn":
                     y, (k, v) = A.attn_forward(sub["mixer"], h, positions,
-                                               cfg, use_rope=self.use_rope)
+                                               cfg, use_rope=self.use_rope,
+                                               prefix_len=prefix_len)
                     new["k"].append(k)
                     new["v"].append(v)
                     x = x + y

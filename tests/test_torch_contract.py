@@ -309,6 +309,26 @@ def test_whisper_config_equals_reference():
         False, None)
 
 
+def test_paligemma_config_equals_reference():
+    """paligemma-3b, the one vision config: its stub frontend's
+    ``VisionStubConfig`` (the class's defaults and the published values,
+    and the reduced variant's) and the fields the prefix and the hd 256
+    decode depend on, in the port's copy and the reference's."""
+    def pin(m):
+        cfg = m.get_config("paligemma-3b")
+        return (dataclasses.asdict(m.VisionStubConfig()),
+                dataclasses.asdict(cfg.vision),
+                dataclasses.asdict(m.reduced(cfg).vision), cfg.num_layers,
+                cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                cfg.d_ff, cfg.vocab, cfg.act, cfg.tie_embeddings,
+                cfg.sliding_window, cfg.encoder)
+    assert pin(configs) == pin(ref_configs) == (
+        {"num_patches": 256, "embed_dim": 1152},
+        {"num_patches": 256, "embed_dim": 1152},
+        {"num_patches": 8, "embed_dim": 64}, 18, 2048, 8, 1, 256, 16384,
+        257216, "gelu_glu", False, None, None)
+
+
 def test_moe_config_defaults_equal_reference():
     fields = {f.name: f.default for f in dataclasses.fields(configs.MoEConfig)}
     want = {f.name: f.default

@@ -26,6 +26,7 @@ CASES = [                        # test_kernels.py's flash_decode sweep
     (1, 1, 1, 64, 100, 32),     # padding path (100 % 32 != 0)
     (3, 4, 2, 128, 256, 256),   # single block
     (2, 8, 1, 128, 33, 8),      # MQA grouping
+    (2, 1, 8, 256, 96, 32),     # paligemma-3b's heads: G = 8 at hd 256
 ]
 
 

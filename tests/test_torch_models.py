@@ -37,7 +37,6 @@ from repro_torch.serving.steps import make_prefill_step, make_serve_step
 ARCHS = ["tinyllama-1.1b", "qwen2.5-3b", "falcon-mamba-7b", "mixtral-8x7b",
          "qwen3-moe-235b-a22b", "jamba-v0.1-52b"]
 TOL = 5e-4
-UNPORTED = {"paligemma-3b": "vision"}
 
 
 def _pair(arch, **changes):
@@ -192,37 +191,34 @@ def test_steps_match_reference(arch):
         np.testing.assert_array_equal(g["next_token"].numpy(),
                                       np.asarray(w["next_token"]))
         nxt = np.array(w["next_token"])[:, None]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_serve_step(port, greedy=False)
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in UNPORTED])
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_decode_matches_prefill(arch):
     """The port's own consistency: the last decode step's logits equal the
     full forward's at that position (the reference's bound); whisper's
-    with the same frames on both."""
+    with the same frames on both, paligemma's with the same patches (its
+    cache holds the prefix too)."""
     cfg = reduced(get_config(arch))
     model = Model(cfg, device="cpu",
                   generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(5)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9)).astype(
         np.int32))
-    kw = {}
+    kw, prefix = {}, 0
     if cfg.encoder is not None:
         kw["frames"] = torch.from_numpy((rng.standard_normal(
             (2, cfg.encoder.src_len, cfg.d_model)) * 0.02).astype(np.float32))
+    if cfg.vision is not None:
+        prefix = cfg.vision.num_patches
+        kw["patches"] = torch.from_numpy((rng.standard_normal(
+            (2, prefix, cfg.vision.embed_dim)) * 0.02).astype(np.float32))
     full, _, _ = model(toks, **kw)
-    _, _, cache = model(toks[:, :8], return_cache=True, cache_len=13, **kw)
+    _, _, cache = model(toks[:, :8], return_cache=True,
+                        cache_len=prefix + 13, **kw)
     logits, _ = model.decode_step(cache, toks[:, 8:9])
     err = (logits - full[:, -1]).abs() / (1 + full[:, -1].abs())
     assert float(err.max()) < TOL
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_configs_raise(arch):
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        Model(reduced(get_config(arch)), device="cpu",
-              generator=torch.Generator().manual_seed(0))
 
 
 def test_bridge_rejects_a_wrong_tree():

@@ -240,10 +240,14 @@ def test_forward_without_frames_raises(pair):
 
 
 def test_batch_with_patches_raises(pair):
+    """Patches given to a config without a vision prefix are refused (the
+    reference ignores them)."""
     _, _, port = pair
-    with pytest.raises(NotImplementedError, match="patches"):
+    frames = torch.zeros((1, port.cfg.encoder.src_len, port.cfg.d_model))
+    with pytest.raises(ValueError, match="patches"):
         make_prefill_step(port)({"tokens": torch.zeros((1, 4),
                                                        dtype=torch.int32),
+                                 "frames": frames,
                                  "patches": torch.zeros((1, 8, 64))})
 
 
