@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.compat_score.ref import (W_HW, W_LOAD, W_LOC,
                                                   W_WARM, compat_score_ref,
                                                   fused_score_ref)
@@ -117,6 +117,10 @@ def _launch(name: str, task_feats, server_feats, locality, task_mids,
     dev = task_feats.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
+    refuse_grad(name, (task_feats, server_feats, locality, task_mids,
+                       server_models),
+                "the scores rank servers for a scheduler's decision; "
+                "nothing differentiates through them")
     n, s = task_feats.shape[0], server_feats.shape[0]
     m = 0 if server_models is None else server_models.shape[1]
     given = {"task_feats": (task_feats, (n, 8)),

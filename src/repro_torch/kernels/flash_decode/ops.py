@@ -15,7 +15,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.flash_decode.ref import flash_decode_ref
 
 SOURCE = _build.KernelSource(
@@ -191,6 +191,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         return flash_decode_ref(q, k_cache, v_cache, valid)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
+    refuse_grad("flash_decode", (q, k_cache, v_cache),
+                "decode attention is not trained: the train step's "
+                "attention is flash_prefill's, through prefill_attention")
     _check(q, k_cache, v_cache, valid)
     b, kh, g, hd = q.shape
     plan = decode_plan(b, kh, g, k_cache.shape[1], hd,

@@ -5,7 +5,10 @@ plain version in ``ref.py``.  There is no fallback between the two.
 ``launch_plan`` gives the kernel's tiling (query rows a block, keys a
 tile, ring stages, the blocks' order, shared memory, precision scheme),
 so the CPU tests pin it.  ``flash_prefill.launches`` counts calls that
-launch the kernel.
+launch the kernel.  Its gradient is ``autograd.py``'s, which
+``prefill_attention`` takes under grad; on CUDA operands that require
+grad, ``flash_prefill`` itself raises rather than return an output that
+autograd cannot see through.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from typing import Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
+from repro_torch.kernels.flash_prefill import autograd
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 
 SOURCE = _build.KernelSource(
@@ -217,6 +221,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_prefill_ref(q, k, v, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
+    refuse_grad("flash_prefill", (q, k, v),
+                "its gradient is autograd.flash_prefill_grad's, which "
+                "prefill_attention takes under grad")
     _check(q, k, v, window)
     b, kh, g, s, hd = q.shape
     if q.numel() == 0:
@@ -273,10 +280,16 @@ flash_prefill.launches = 0
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       window=None) -> torch.Tensor:
     """q: (B, S, H, hd); k, v: (B, S, KH, hd) -> (B, S, H, hd), causal;
-    head h is (h // G, h % G).  Permuted views in, no copies."""
+    head h is (h // G, h % G).  Permuted views in, no copies.  Under
+    grad (grad mode on and an operand requiring grad) the call goes
+    through :func:`autograd.flash_prefill_grad`, the same forward with
+    its backward; otherwise straight to :func:`flash_prefill`."""
     b, s, h, hd = q.shape
     kh = k.shape[2]
     qr = q.reshape(b, s, kh, h // kh, hd).permute(0, 2, 3, 1, 4)
-    o = flash_prefill(qr, k.transpose(1, 2), v.transpose(1, 2),
-                      window=window)
+    attend = flash_prefill
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        attend = autograd.flash_prefill_grad
+    o = attend(qr, k.transpose(1, 2), v.transpose(1, 2), window=window)
     return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd)

@@ -29,7 +29,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.micro_state import EMPTY
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.greedy_assign.ref import greedy_assign_ref
 
 SOURCE = _build.KernelSource(
@@ -345,6 +345,10 @@ def greedy_assign(x: GreedyInputs) -> Tuple[torch.Tensor, Rings]:
         return greedy_assign_ref(x)
     if dev.type != "cuda":
         raise ValueError(f"greedy_assign: unsupported device {dev}")
+    refuse_grad("greedy_assign", (getattr(x, f.name)
+                                  for f in dataclasses.fields(x)),
+                "the assignment is a scheduler's decision; nothing "
+                "differentiates through it")
     _check(x)
     r, s_pad, _ = x.l_mids.shape
     static, e = x.static is not None, x.l_emb.shape[3]

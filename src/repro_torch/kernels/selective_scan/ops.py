@@ -16,7 +16,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 SOURCE = _build.KernelSource(
@@ -184,6 +184,10 @@ def selective_scan(dt: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
         return selective_scan_ref(dt, bm, cm, x, a, d_skip)
     if x.device.type != "cuda":
         raise ValueError(f"selective_scan: unsupported device {x.device}")
+    refuse_grad("selective_scan", (dt, bm, cm, x, a, d_skip),
+                "the scan's backward, d dt, dB, dC, dx, dA and dD, is the "
+                "next slice of the port: Mamba layers do not train on the "
+                "card yet")
     _check(dt, bm, cm, x, a, d_skip)
     return _run(dt, bm, cm, x, a, d_skip, scan_plan(a.shape[-1], x.dtype))
 

@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, refuse_grad
 from repro_torch.kernels.sinkhorn.ref import sinkhorn_ref
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
@@ -194,6 +194,9 @@ def sinkhorn_plan(mu: torch.Tensor, nu: torch.Tensor, cost: torch.Tensor, *,
         return sinkhorn_ref(mu, nu, cost, reg=reg, n_iters=n_iters)
     if mu.device.type != "cuda":
         raise ValueError(f"sinkhorn_plan: unsupported device {mu.device}")
+    refuse_grad("sinkhorn_plan", (mu, nu, cost),
+                "the transport plan is a scheduler's decision; nothing "
+                "differentiates through it")
     _check(mu, nu, cost)
     out = _launch(mu, nu, cost, launch_plan(*mu.shape), reg, n_iters)
     sinkhorn_plan.launches += 1

@@ -116,7 +116,10 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The route follows the call's arguments.  Causal self-attention over a
     whole sequence (no positions given, so both are ``arange(S)``; no
     prefix, no key mask), the decoder's prefill, goes through the
-    ``flash_prefill`` kernel.  Everything else is the plain version of
+    ``flash_prefill`` kernel: straight to it when no gradient is wanted
+    (serving), and under grad (the train step) through its autograd
+    path, the kernel's forward with an explicit backward
+    (``kernels/flash_prefill/autograd.py``).  Everything else is the plain version of
     the reference's masking: on the serving path that is whisper's
     non-causal attention (its encoder's self-attention and the prefill's
     cross-attention) and paligemma's prefill under the prefix-LM mask

@@ -81,11 +81,16 @@ def decode_positions(pos: torch.Tensor, dim: int) -> torch.Tensor:
     return sinusoidal_rows(row, dim)
 
 
-def _group(tree: Tree, g: int) -> Tree:
-    """Group ``g``'s slice of a stacked parameter tree (views)."""
+def _groups(tree: Tree, n: int) -> list:
+    """The ``n`` groups of a stacked parameter tree, each a tree of views,
+    by one ``unbind`` a leaf: under grad the groups' gradients are then
+    stacked back once, where taking one group at a time by indexing would
+    scatter each group's gradient into a zeroed tensor of the stacked
+    size and add it in, a cost quadratic in the depth."""
     if isinstance(tree, dict):
-        return {k: _group(v, g) for k, v in tree.items()}
-    return tree[g]
+        per_key = {k: _groups(v, n) for k, v in tree.items()}
+        return [{k: v[g] for k, v in per_key.items()} for g in range(n)]
+    return list(tree.unbind(0))
 
 
 class Model(nn.Module):
@@ -135,8 +140,7 @@ class Model(nn.Module):
         src_len = frames.shape[1]
         positions = torch.arange(src_len, device=frames.device)
         x = frames + sinusoidal_rows(positions, cfg.d_model).to(frames.dtype)
-        for li in range(cfg.encoder.num_layers):
-            lp = _group(enc["layers"], li)
+        for lp in _groups(enc["layers"], cfg.encoder.num_layers):
             h = norm(x, lp["attn_norm"], cfg.norm_kind, cfg.norm_eps)
             y, _ = A.attn_forward(lp["attn"], h, positions, cfg,
                                   causal=False, use_rope=False)
@@ -190,8 +194,7 @@ class Model(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         ys: Dict[str, list] = {"k": [], "v": [], "h": [], "conv": [],
                                "ck": [], "cv": []}
-        for gi in range(self.n_groups):
-            gp = _group(p["groups"], gi)
+        for gp in _groups(p["groups"], self.n_groups):
             new: Dict[str, list] = {k: [] for k in ys}
             for i, kind in enumerate(self.period):
                 sub = gp[f"pos{i}"]
@@ -317,8 +320,7 @@ class Model(nn.Module):
         x = F.embedding(tokens, p["embed"])
         if self.is_encdec:
             x = x + decode_positions(pos, cfg.d_model)[:, None].to(x.dtype)
-        for gi in range(self.n_groups):
-            gp = _group(p["groups"], gi)
+        for gi, gp in enumerate(_groups(p["groups"], self.n_groups)):
             ia = im = 0
             for i, kind in enumerate(self.period):
                 sub = gp[f"pos{i}"]

@@ -20,6 +20,7 @@ import repro.core.env as ref_env
 import repro.core.micro as ref_micro
 import repro.core.policy as ref_policy
 import repro.core.predictor as ref_predictor
+import repro.data as ref_data
 import repro.kernels.compat_score.fused as ref_fused
 import repro.kernels.compat_score.kernel as ref_compat
 import repro.obs as ref_obs
@@ -35,6 +36,7 @@ import repro_torch.core.env as env
 import repro_torch.core.micro as micro
 import repro_torch.core.policy as policy
 import repro_torch.core.predictor as predictor
+import repro_torch.data as data
 import repro_torch.kernels.compat_score.ref as compat
 import repro_torch.obs as obs
 import repro_torch.obs.series as series
@@ -59,6 +61,7 @@ from repro_torch.serving import Replica, ServingCluster
 from repro_torch.sim.engine import Engine
 from repro_torch.sim.state import make_cluster_state
 from repro_torch.sim.topology import Topology
+from repro_torch import train_lm
 from repro_torch.workload import StreamingWorkload
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -74,6 +77,14 @@ def _imported_roots(path: pathlib.Path):
                 yield alias.name.split(".")[0]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module.split(".")[0]
+
+
+def test_port_files_include_the_train_slice():
+    """The walk over the port's files reaches the token pipeline and the
+    training script, so the import checks cover them."""
+    for rel in ("data/__init__.py", "data/tokens.py", "train_lm.py",
+                "kernels/flash_prefill/autograd.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -172,6 +183,7 @@ ENTRY_POINTS = {
     "ServingCluster": lambda: ServingCluster(1, 1, ["tinyllama-1.1b"]),
     "model_params_from_arrays": lambda: model_params_from_arrays(
         configs.reduced(configs.get_config("tinyllama-1.1b")), {}),
+    "train_lm": lambda: train_lm.run(train_lm.parse_args([])),
 }
 
 
@@ -244,6 +256,15 @@ RL_CONSTANTS = {
 def test_copied_rl_constant_equals_reference(name):
     got, want = RL_CONSTANTS[name]
     assert got == want
+
+
+def test_synthetic_data_defaults_equal_reference():
+    """``SyntheticLMData``'s fields and defaults (``branching`` 32, seed 0)
+    are the reference's."""
+    got, want = ([(f.name, f.default) for f in dataclasses.fields(
+        m.SyntheticLMData)] for m in (data, ref_data))
+    assert got == want
+    assert dict(got)["branching"] == 32
 
 
 def test_copied_cluster_builder_matches_reference():

@@ -5,7 +5,9 @@ jnp oracle, on ``tests/test_kernels.py``'s sweep at its tolerances
 against the reference model's at atol 2e-5 (``test_kernels.py:120``).
 Then the CUDA kernel's launch plan (every visible pair walked once,
 heaviest blocks first, shared memory within the card's) and its precision
-scheme (3xTF32 products, emulated, against float64)."""
+scheme (3xTF32 products, emulated, against float64).  Last, the
+gradient: ``flash_prefill_bwd`` and the autograd path against ``jax.vjp``
+of the jnp oracle (tolerances where they are defined)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +18,10 @@ from repro.kernels.flash_prefill import flash_prefill_ref as jax_prefill_ref
 from repro.kernels.flash_prefill.ops import \
     prefill_attention as jax_prefill_attention
 from repro.models.layers import gqa_attention as jax_gqa_attention
-from repro_torch.kernels.flash_prefill import (flash_prefill, ops,
+from repro_torch.kernels.flash_prefill import (flash_prefill,
+                                               flash_prefill_bwd,
+                                               flash_prefill_grad,
+                                               flash_prefill_ref, ops,
                                                prefill_attention)
 from repro_torch.models.layers import gqa_attention
 
@@ -296,3 +301,116 @@ def test_split_tf32_products_keep_float32_accuracy(hd, seed):
     for i in range(2):
         assert err["3xtf32"][i] <= 2 * err["plain"][i], err
         assert err["tf32"][i] > 2 * err["plain"][i], err
+
+
+# ---------------------------------------------------------------- backward
+#
+# The gradient the train step takes through the kernel: ``flash_prefill_bwd``
+# (explicit torch operations, in query chunks) and the autograd path that
+# ``prefill_attention`` takes under grad, against ``jax.vjp`` of the
+# reference's jnp oracle (``repro/kernels/flash_prefill/ref.py``).  The
+# oracle computes in float32 even for float64 operands, so both types are
+# held to it at 1e-5 relative to each gradient's largest entry: float32
+# sums over up to 40 keys taken in another order differ by up to 9e-7 of
+# the largest entry here, and the float64 port differs from the float32
+# oracle by the oracle's own rounding (5e-7).  The float64 port is then
+# held to autograd of the port's own plain version in float64 at 1e-12,
+# the exact gradient.
+
+BWD_SHAPE = (2, 2, 40)           # (B, KH, S): S not a multiple of a chunk
+BWD_TOL = 1e-5
+
+
+def _bwd_operands(g, hd, dtype, seed=0):
+    b, kh, s = BWD_SHAPE
+    rng = np.random.default_rng(seed + 97 * g + hd)
+    shapes = ((b, kh, g, s, hd), (b, kh, s, hd), (b, kh, s, hd),
+              (b, kh, g, s, hd))
+    return [rng.standard_normal(sh).astype(dtype) for sh in shapes]
+
+
+def _oracle_vjp(q, k, v, do, window):
+    import jax
+    with jax.enable_x64(q.dtype == np.float64):
+        dt = jnp.float64 if q.dtype == np.float64 else jnp.float32
+        out, vjp = jax.vjp(
+            lambda a, b, c: jax_prefill_ref(a, b, c, window=window),
+            *(jnp.asarray(x, dt) for x in (q, k, v)))
+        grads = vjp(jnp.asarray(do, dt))
+        return np.asarray(out), [np.asarray(gr) for gr in grads]
+
+
+def _hold_rel(got, want, tol, what):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    scale = np.abs(want).max()
+    err = np.abs(got - want).max() / scale
+    assert err <= tol, f"{what}: max |diff| / max |want| = {err:.3e}"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("window", [None, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("g", [1, 4])
+def test_backward_matches_oracle_vjp(g, hd, window, dtype):
+    """dq, dk, dv of ``flash_prefill_bwd`` (16-row chunks, so the last is
+    ragged) and of the autograd path (one chunk) against ``jax.vjp`` of
+    the oracle; in float64 also against autograd of the plain version."""
+    q, k, v, do = _bwd_operands(g, hd, np.dtype(dtype))
+    want_o, want = _oracle_vjp(q, k, v, do, window)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o = flash_prefill(tq, tk, tv, window=window)
+    chunked = flash_prefill_bwd(tq, tk, tv, o, tdo, window=window, chunk=16)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    out = flash_prefill_grad(*leaves, window=window)
+    path = torch.autograd.grad(out, leaves, tdo)
+    _hold_rel(out, want_o, BWD_TOL, "output")
+    for name, a, b_, w in zip(("dq", "dk", "dv"), chunked, path, want):
+        assert a.dtype == tq.dtype and a.shape == w.shape, name
+        _hold_rel(a, w, BWD_TOL, f"{name}, chunked")
+        _hold_rel(b_, w, BWD_TOL, f"{name}, autograd path")
+    if dtype == "float64":
+        exact = torch.autograd.grad(
+            flash_prefill_ref(*leaves, window=window), leaves, tdo)
+        for name, a, w in zip(("dq", "dk", "dv"), chunked, exact):
+            _hold_rel(a, w.numpy(), 1e-12, f"{name} vs float64 autograd")
+
+
+def _graph_nodes(fn) -> set:
+    """The names of the autograd nodes reachable from ``fn``."""
+    seen, todo = set(), [fn]
+    while todo:
+        node = todo.pop()
+        if node is not None and type(node).__name__ not in seen:
+            seen.add(type(node).__name__)
+            todo.extend(nxt for nxt, _ in node.next_functions)
+    return seen
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_prefill_attention_routes_by_grad_mode(window):
+    """Under grad, ``prefill_attention`` goes through the autograd path
+    (its output has the Function's ``grad_fn``) and its gradients equal
+    autograd of the plain version on the model's (B, S, H, hd) views;
+    without grad, the output has none and is the same."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((2, 24, 8, 32), (2, 24, 2, 32), (2, 24, 2, 32)))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = prefill_attention(*leaves, window=window)
+    assert "FlashPrefillBackward" in _graph_nodes(out.grad_fn)
+    with torch.no_grad():
+        plain = prefill_attention(*leaves, window=window)
+    assert plain.grad_fn is None
+    torch.testing.assert_close(out.detach(), plain, rtol=0, atol=0)
+    do = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
+    got = torch.autograd.grad(out, leaves, do)
+    b, s, h, hd = q.shape
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    qr = ref_leaves[0].reshape(b, s, 2, 4, hd).permute(0, 2, 3, 1, 4)
+    ref_out = flash_prefill_ref(qr, ref_leaves[1].transpose(1, 2),
+                                ref_leaves[2].transpose(1, 2), window=window)
+    want = torch.autograd.grad(
+        ref_out.permute(0, 3, 1, 2, 4).reshape(b, s, h, hd), ref_leaves, do)
+    for a, w in zip(got, want):
+        assert bool(a.abs().max() > 0)
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-5)
