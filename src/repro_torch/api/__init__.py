@@ -1,6 +1,8 @@
 """Batch-native scheduler API (port of ``repro/api``): the ``Scheduler``
 contract, ``BatchDecision``, and the legacy ``schedule()`` adapter with
-``SlotDecision`` and its converters."""
+``SlotDecision`` and its converters; the adapter's ``obs_mode="cluster"``
+gives a legacy scheduler the object ``Cluster`` view that the frozen
+oracle (``sim/reference.py``) reads."""
 from repro_torch.api.adapter import (LegacyOnlyView, LegacySchedulerAdapter,
                                      ensure_batch_scheduler)
 from repro_torch.api.contract import (BatchDecision, Scheduler, SlotDecision,

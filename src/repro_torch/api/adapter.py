@@ -11,9 +11,10 @@ class LegacySchedulerAdapter:
     batch-native contract.
 
     ``obs_mode="state"`` (default) passes the engine's ``SlotObs``
-    through unchanged.  ``obs_mode="cluster"``, the reference's view for
-    its frozen object oracle (``sim/reference.py``), needs that oracle and
-    ``ClusterState.to_cluster``, which the port does not have yet.
+    through unchanged; ``obs_mode="cluster"`` rebuilds the pre-refactor
+    ``RefSlotObs`` (object ``Cluster`` view, ``ClusterState.to_cluster``)
+    each slot, so the frozen oracle schedulers of ``sim/reference.py`` can
+    be driven by the array engine, as the golden-parity checks do.
     """
 
     def __init__(self, scheduler, *, obs_mode: str = "state"):
@@ -22,12 +23,7 @@ class LegacySchedulerAdapter:
                 f"{type(scheduler).__name__} has no schedule() method; "
                 "LegacySchedulerAdapter wraps legacy object-path "
                 "schedulers only")
-        if obs_mode == "cluster":
-            raise NotImplementedError(
-                "obs_mode='cluster' needs the frozen object oracle "
-                "(sim/reference.py) and ClusterState.to_cluster, not "
-                "ported yet (ROADMAP.md queue 1)")
-        if obs_mode != "state":
+        if obs_mode not in ("state", "cluster"):
             raise ValueError(f"unknown obs_mode: {obs_mode!r}")
         self.wrapped = scheduler
         self.obs_mode = obs_mode
@@ -40,8 +36,21 @@ class LegacySchedulerAdapter:
         if hasattr(self.wrapped, "reset"):
             self.wrapped.reset()
 
+    def _convert_obs(self, obs):
+        if self.obs_mode == "state":
+            return obs
+        from repro_torch.sim.reference import RefSlotObs
+        return RefSlotObs(
+            t=obs.t, latency=obs.latency, capacities=obs.capacities,
+            total_capacities=obs.total_capacities, queue_s=obs.queue_s,
+            queue_tasks=obs.queue_tasks, utilization=obs.utilization,
+            power_prices=obs.power_prices, prev_alloc=obs.prev_alloc,
+            arrivals_history=obs.arrivals_history,
+            cluster=obs.state.to_cluster(), slot_seconds=obs.slot_seconds)
+
     def schedule_batch(self, obs, batch) -> BatchDecision:
-        decision = self.wrapped.schedule(obs, batch.to_tasks())
+        tasks = batch.to_tasks()
+        decision = self.wrapped.schedule(self._convert_obs(obs), tasks)
         return slot_to_batch_decision(decision, batch)
 
 

@@ -17,11 +17,17 @@ Four backends, as in the reference:
   route's plain form.
 
 The Eq-6 activation targets stay host arithmetic, as in the reference.
+So do the scalar Eq 7-10 functions (``score`` and its terms,
+``LocalityTracker``), the float64 oracle of the batched matrix that the
+frozen per-object reference (``sim/reference.py``) scores with, and the
+object-path entry ``MicroAllocator.assign_region``, which sorts and packs
+``Task`` objects for the same per-region core as ``assign_batch``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +38,7 @@ from repro_torch.core.micro_torch import (DeviceRings, assign_scan,
                                           assign_scan_all)
 from repro_torch.kernels.compat_score import score_matrix
 from repro_torch.obs import runtime as obs_rt
-from repro_torch.sim.state import ACTIVE, MODEL_NAMES, ClusterState
+from repro_torch.sim.state import ACTIVE, MODEL_NAMES, ClusterState, model_id
 
 W_HW, W_LOAD, W_LOC = 0.4, 0.4, 0.2      # Eq 7 weights
 W_WARM = 2.0                             # same-model (no-switch) bonus
@@ -42,6 +48,7 @@ LOC_DECAY = 0.5                          # lambda in Eq 10
 # compute requirement proxy: task kind maps to a tflops demand (Eq 8)
 DEMAND_TFLOPS = {"compute": 200.0, "memory": 100.0, "lightweight": 60.0}
 KIND_ORDER = ("compute", "memory", "lightweight")
+_KIND_IDX = {k: i for i, k in enumerate(KIND_ORDER)}
 _DEMAND_BY_KIND = np.array([DEMAND_TFLOPS[k] for k in KIND_ORDER])
 
 # model-id -> lexicographic rank of the model name, so the greedy order
@@ -63,6 +70,127 @@ def target_active_servers(queue_tasks: float, predicted: float,
     f = max(predicted, 0.0)
     need = (queue_tasks + f + sigma * math.sqrt(f)) / max(avg_capacity, 1e-9)
     return int(min(n_servers, max(1, math.ceil(headroom * need))))
+
+
+# ---------------------------------------------------------------------------
+# scalar Eq 7-10 reference (host float64; the oracle of the batched path,
+# scored by sim/reference.py)
+# ---------------------------------------------------------------------------
+
+
+def hw_compatibility(task, srv) -> float:
+    """Eq 8: min(1, compute ratio) * min(1, memory ratio) * type match."""
+    demand = DEMAND_TFLOPS[task.kind]
+    c = min(1.0, srv.tflops / demand)
+    m = min(1.0, srv.mem_gb / max(task.mem_gb, 1e-9))
+    type_match = 1.0 if srv.kind == task.kind else 0.5
+    return c * m * type_match
+
+
+def load_compatibility(srv, slot_s: float) -> float:
+    """Eq 9: exp(-(util + queue)), the queue as slot-time occupancy."""
+    q_norm = srv.queue_s / max(slot_s, 1e-9)
+    return math.exp(-(srv.util + q_norm))
+
+
+@dataclasses.dataclass
+class RecentTask:
+    model: Optional[str]         # None for history entries with mid < 0
+    embed: Optional[np.ndarray]
+    slot: int
+    # derived facts the column form reads (the scalar form recomputes them)
+    mid: int = -1
+    norm: float = 0.0
+    uid: int = -1                # tracker-unique id (the cache key)
+
+
+class LocalityTracker:
+    """Recent-task history per (region, server) for Eq 10, newest first."""
+
+    def __init__(self, keep: int = 4):
+        self.keep = keep
+        self.recent: Dict[Tuple[int, int], List[RecentTask]] = {}
+        self._uid = 0
+
+    def note(self, key: Tuple[int, int], task, t: int) -> None:
+        self.note_fields(key, model_id(task.model), task.embed, t)
+
+    def note_fields(self, key: Tuple[int, int], mid: int,
+                    embed: Optional[np.ndarray], t: int) -> None:
+        """Record an entry by model id and embedding row."""
+        lst = self.recent.setdefault(key, [])
+        norm = np.linalg.norm(embed) if embed is not None else 0.0
+        self._uid += 1
+        lst.insert(0, RecentTask(MODEL_NAMES[mid] if mid >= 0 else None,
+                                 embed, t, mid=mid, norm=norm,
+                                 uid=self._uid))
+        del lst[self.keep:]
+
+    def locality(self, key: Tuple[int, int], task, t: int) -> float:
+        total = 0.0
+        for rt in self.recent.get(key, ()):
+            sim = W_MODEL * (1.0 if rt.model == task.model else 0.0)
+            if task.embed is not None and rt.embed is not None:
+                denom = (np.linalg.norm(task.embed) * np.linalg.norm(rt.embed))
+                if denom > 1e-9:
+                    sim += W_EMBED * float(task.embed @ rt.embed) / denom
+            total += sim / math.exp(LOC_DECAY * min(max(t - rt.slot, 0), 40))
+        return total
+
+    def locality_column(self, key: Tuple[int, int], mids: np.ndarray,
+                        embeds: np.ndarray, norms: np.ndarray,
+                        has_embed: np.ndarray, t: int,
+                        cache: Optional[dict] = None) -> np.ndarray:
+        """(N,) Eq-10 locality of every task against one server's
+        history, :meth:`locality` over a column in the same order.
+        ``cache`` memoizes each entry's contribution within one slot,
+        keyed by its uid."""
+        recent = self.recent.get(key)
+        n = len(mids)
+        if not recent:
+            return np.zeros(n)
+        col = np.zeros(n)
+        for rt in recent:
+            contrib = cache.get(rt.uid) if cache is not None else None
+            if contrib is None:
+                sim = W_MODEL * (mids == rt.mid).astype(np.float64)
+                if rt.embed is not None and has_embed.any():
+                    denom = norms * rt.norm
+                    ok = has_embed & (denom > 1e-9)
+                    dots = embeds @ rt.embed
+                    safe = np.where(ok, denom, 1.0)
+                    sim = sim + np.where(
+                        ok, W_EMBED * dots.astype(np.float64) / safe, 0.0)
+                contrib = sim / math.exp(
+                    LOC_DECAY * min(max(t - rt.slot, 0), 40))
+                if cache is not None:
+                    cache[rt.uid] = contrib
+            col += contrib
+        return col
+
+
+def score(task, srv, key: Tuple[int, int], t: int, slot_s: float,
+          loc: LocalityTracker) -> float:
+    """Eq 7 plus the warm-model bonus (a same-model hit skips the whole
+    Fig-3 switch pipeline)."""
+    warm = 1.0 if srv.current_model == task.model else (
+        0.4 if task.model in srv.warm_models else 0.0)
+    return (W_HW * hw_compatibility(task, srv)
+            + W_LOAD * load_compatibility(srv, slot_s)
+            + W_LOC * loc.locality(key, task, t)
+            + W_WARM * warm)
+
+
+def task_feature_matrix(tasks: Sequence) -> np.ndarray:
+    """(N, 8) float64 of ``Task`` objects: [demand_tflops, mem_gb, kind
+    one-hot x3, 0, 0, 0]."""
+    n = len(tasks)
+    f = np.zeros((n, 8))
+    for i, t in enumerate(tasks):
+        f[i, 0] = DEMAND_TFLOPS[t.kind]
+        f[i, 1] = t.mem_gb
+        f[i, 2 + _KIND_IDX[t.kind]] = 1.0
+    return f
 
 
 def task_feature_arrays(kind_id: np.ndarray,
@@ -183,6 +311,24 @@ class MicroAllocator:
                 ridx, self._dev_region_sizes[ridx])
         return self._loc.get(ridx)
 
+    def locality_tracker(self) -> LocalityTracker:
+        """All regions' history as one ``LocalityTracker`` (interop and
+        debugging; scores are exactly equivalent).  The fused route's
+        device rings are read back from the device once."""
+        tracker = LocalityTracker(keep=self.KEEP)
+        rings = self._dev_rings
+        if rings is not None:
+            host = DeviceRings(*(t.cpu() for t in (
+                rings.mids, rings.slots, rings.embeds, rings.norms)))
+            for ridx in range(host.mids.shape[0]):
+                host.region_state(
+                    ridx, self._dev_region_sizes[ridx]).to_tracker(
+                        ridx, tracker)
+            return tracker
+        for ridx, lstate in sorted(self._loc.items()):
+            lstate.to_tracker(ridx, tracker)
+        return tracker
+
     def _state_for(self, ridx: int, n_servers: int,
                    edim: int) -> LocalityState:
         lstate = self._loc.get(ridx)
@@ -222,6 +368,37 @@ class MicroAllocator:
         for j in range(r):
             out[j] = self.activation_target(obs, j, float(pred_inbound[j]))
         return out
+
+    def assign_region(self, obs, ridx: int, tasks: List
+                      ) -> Dict[int, Optional[Tuple[int, int]]]:
+        """Object-path entry: sorts ``Task`` objects by (deadline, model,
+        -work), packs them into arrays and runs the region through the
+        backend's core; returns ``{task id: (ridx, server) or None}``."""
+        if not tasks:
+            return {}
+        with obs_rt.span("micro.assign"):
+            ordered = sorted(tasks,
+                             key=lambda tk: (tk.deadline_slot, tk.model,
+                                             -tk.work_s))
+            edim = next((tk.embed.shape[0] for tk in ordered
+                         if tk.embed is not None), 1)
+            embeds = np.stack([tk.embed if tk.embed is not None
+                               else np.zeros(edim, np.float32)
+                               for tk in ordered])
+            servers = self._assign_core(
+                obs, ridx,
+                mem_t=np.array([tk.mem_gb for tk in ordered]),
+                work=np.array([tk.work_s for tk in ordered]),
+                mids=np.array([model_id(tk.model) for tk in ordered],
+                              np.int16),
+                kind_ids=np.array([_KIND_IDX[tk.kind] for tk in ordered],
+                                  np.int8),
+                embeds=embeds,
+                has_embed=np.array([tk.embed is not None
+                                    for tk in ordered]),
+                norms=np.linalg.norm(embeds, axis=1))
+        return {tk.id: ((ridx, int(s)) if s >= 0 else None)
+                for tk, s in zip(ordered, servers)}
 
     def assign_batch_all(self, obs, batch, region_of: np.ndarray) -> np.ndarray:
         """Assign EVERY routed row of the slot's ``TaskBatch`` in one

@@ -20,6 +20,9 @@ greedy kernel and writes them back.  Field for field the reference's:
 Rows are newest-first (index 0 is the most recent entry), so ``column``
 sums the entries in the reference's order and its results are bitwise
 the reference's.  Ring slots beyond ``count`` hold ``EMPTY`` / zeros.
+``from_tracker`` / ``to_tracker`` convert exactly to and from the scalar
+``LocalityTracker`` (``core/micro.py``), the history of the frozen
+per-object oracle.
 """
 from __future__ import annotations
 
@@ -129,3 +132,57 @@ class LocalityState:
                     cache[key] = contrib
             col += contrib
         return col
+
+    @classmethod
+    def from_tracker(cls, tracker, ridx: int, n_servers: int,
+                     embed_dim: int = 8) -> "LocalityState":
+        """One region's history imported from a ``LocalityTracker`` (its
+        newest-first lists become the rings, uids kept)."""
+        keep = tracker.keep
+        edim = embed_dim
+        for (r, _s), lst in tracker.recent.items():
+            if r != ridx:
+                continue
+            for rt in lst:
+                if rt.embed is not None:
+                    edim = max(edim, rt.embed.shape[0])
+        st = cls.empty(n_servers, keep, edim)
+        for (r, s), lst in tracker.recent.items():
+            if r != ridx or not lst:
+                continue
+            for k, rt in enumerate(lst[:keep]):
+                st.mids[s, k] = rt.mid
+                st.slots[s, k] = rt.slot
+                if rt.embed is not None:
+                    st.embeds[s, k, :rt.embed.shape[0]] = rt.embed
+                st.norms[s, k] = rt.norm
+                st.uid[s, k] = rt.uid
+            st.count[s] = min(len(lst), keep)
+        return st
+
+    def to_tracker(self, ridx: int, tracker=None):
+        """This region's history exported into a ``LocalityTracker``
+        (score-equivalent: zero-norm entries come back as ``embed=None``,
+        which contributes the same)."""
+        from repro_torch.core.micro import LocalityTracker, RecentTask
+        from repro_torch.sim.state import MODEL_NAMES
+        if tracker is None:
+            tracker = LocalityTracker(keep=self.keep)
+        for s in range(self.n_servers):
+            c = int(self.count[s])
+            if c == 0:
+                continue
+            lst = []
+            for k in range(c):
+                mid = int(self.mids[s, k])
+                has = self.norms[s, k] > 0.0
+                lst.append(RecentTask(
+                    model=MODEL_NAMES[mid] if mid >= 0 else None,
+                    embed=self.embeds[s, k].copy() if has else None,
+                    slot=int(self.slots[s, k]), mid=mid,
+                    norm=float(self.norms[s, k]),
+                    uid=int(self.uid[s, k])))
+            tracker.recent[(ridx, s)] = lst
+        if self.uid.size:
+            tracker._uid = max(tracker._uid, int(self.uid.max()))
+        return tracker

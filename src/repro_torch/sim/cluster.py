@@ -1,15 +1,16 @@
 """Heterogeneous GPU clusters (paper Table I.b + Fig 3 cost tables).
 
 Port of ``repro/sim/cluster.py``: the same constants, the same seeded
-``make_cluster`` draws (a given seed yields the identical fleet), and the
-task/throughput helpers.  The object model keeps only what
-``ClusterState.from_cluster`` reads; the per-object engine's methods stay
-in the reference.
+``make_cluster`` draws (a given seed yields the identical fleet), the
+task/throughput helpers, and the object model with its methods:
+``make_cluster``'s output, ``ClusterState.to_cluster``'s, and what the
+frozen per-object oracle (``sim/reference.py``) and the legacy
+scheduler path read and mutate.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -47,9 +48,45 @@ class Server:
     capacity: float                 # tasks / slot at full utilisation
     state: str = "active"           # off | warming | active
     warm_remaining_s: float = 0.0
+    current_model: Optional[str] = None
+    warm_models: List[str] = dataclasses.field(default_factory=list)
     queue_s: float = 0.0            # backlog in gpu-seconds
     util: float = 0.0
     idle_slots: int = 0
+
+    @property
+    def tflops(self) -> float:
+        return GPU_TYPES[self.gpu][0]
+
+    @property
+    def mem_gb(self) -> float:
+        return GPU_TYPES[self.gpu][1]
+
+    @property
+    def power_w(self) -> float:
+        return GPU_TYPES[self.gpu][2]
+
+    @property
+    def kind(self) -> str:
+        return GPU_TYPES[self.gpu][3]
+
+    def switch_cost_s(self, model: str) -> float:
+        scale = GPU_TYPES[self.gpu][5]
+        if self.current_model == model:
+            return 0.0
+        if model in self.warm_models:   # warm cache hit (paper §II warm-up)
+            return 0.5 * scale * (SWITCH_STAGES_S["load"]
+                                  + SWITCH_STAGES_S["reconfig"])
+        return scale * MODEL_SWITCH_S
+
+    def note_model(self, model: str) -> None:
+        """MRU update: the model becomes current and the head of the
+        3-entry warm list."""
+        self.current_model = model
+        if model in self.warm_models:
+            self.warm_models.remove(model)
+        self.warm_models.insert(0, model)
+        del self.warm_models[3:]
 
 
 @dataclasses.dataclass
@@ -58,10 +95,38 @@ class Region:
     servers: List[Server]
     power_price: float              # $/kWh
 
+    @property
+    def capacity(self) -> float:
+        return sum(s.capacity for s in self.servers if s.state == "active")
+
+    @property
+    def total_capacity(self) -> float:
+        return sum(s.capacity for s in self.servers)
+
+    def active_servers(self) -> List[Server]:
+        return [s for s in self.servers if s.state == "active"]
+
 
 @dataclasses.dataclass
 class Cluster:
     regions: List[Region]
+
+    @property
+    def n_regions(self) -> int:
+        return len(self.regions)
+
+    def capacities(self) -> np.ndarray:
+        return np.array([r.capacity for r in self.regions])
+
+    def power_prices(self) -> np.ndarray:
+        return np.array([r.power_price for r in self.regions])
+
+    def utilizations(self) -> np.ndarray:
+        out = []
+        for r in self.regions:
+            act = r.active_servers()
+            out.append(np.mean([s.util for s in act]) if act else 0.0)
+        return np.array(out)
 
 
 def make_cluster(n_regions: int, seed: int = 0, *,
@@ -99,6 +164,6 @@ def throughput_per_slot(cluster, slot_s: float = 45.0,
     object ``Cluster`` or a ``ClusterState``."""
     tflops = getattr(cluster, "tflops", None)
     if tflops is None:
-        tflops = np.array([GPU_TYPES[s.gpu][0] for reg in cluster.regions
+        tflops = np.array([s.tflops for reg in cluster.regions
                            for s in reg.servers])
     return float(np.sum(slot_s * (np.asarray(tflops) / 112.0) / ref_work_s))

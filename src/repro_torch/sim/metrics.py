@@ -57,6 +57,16 @@ class MetricsAggregator:
         self.completion_slots: List[int] = []
         self.drops_by_slot: Dict[int, int] = {}
 
+    def record_completion(self, task, t: int, *, wait_s: float, work_s: float,
+                          net_s: float) -> None:
+        """One completion (the per-object oracle's path)."""
+        self.completed += 1
+        self.response_times.append(wait_s + work_s + net_s)
+        self.wait_times.append(wait_s)
+        self.work_times.append(work_s)
+        self.net_times.append(net_s)
+        self.completion_slots.append(t)
+
     def record_completions(self, t: int, wait_s, work_s, net_s) -> None:
         """Bulk completion record for the engine's grouped apply."""
         wait = np.asarray(finite_or_nan(np.asarray(wait_s, np.float64)),
@@ -73,6 +83,9 @@ class MetricsAggregator:
         self.work_times.extend(work.tolist())
         self.net_times.extend(net.tolist())
         self.completion_slots.extend([t] * int(wait.size))
+
+    def record_drop(self, task, t: int) -> None:
+        self.record_drops(1, t)
 
     def record_drops(self, n: int, t: int) -> None:
         n = int(n)

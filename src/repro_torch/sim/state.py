@@ -6,6 +6,9 @@ It is the host mirror the scheduler and the engine's oracle fallbacks
 read; the torch step (``sim/engine_torch.py``) uploads the columns it
 needs and writes its results back here.  Per-region reductions are
 sequential within a segment, which is the reference's parity contract.
+``from_cluster`` / ``to_cluster`` convert losslessly to and from the
+object model (``sim/cluster.py``), the view of the frozen per-object
+oracle (``sim/reference.py``).
 """
 from __future__ import annotations
 
@@ -15,8 +18,8 @@ from typing import List, Optional
 import numpy as np
 
 from repro_torch.sim.cluster import (GPU_TYPES, MODEL_CATALOG, MODEL_SWITCH_S,
-                                     SWITCH_STAGES_S, Cluster, Server,
-                                     make_cluster)
+                                     SWITCH_STAGES_S, Cluster, Region,
+                                     Server, make_cluster)
 
 # server state codes
 OFF, WARMING, ACTIVE = 0, 1, 2
@@ -197,7 +200,7 @@ class ClusterState:
             prices.append(reg.power_price)
         s = len(servers)
         spec = [GPU_TYPES[sv.gpu] for sv in servers]
-        return cls(
+        st = cls(
             region_ptr=np.asarray(ptr, np.int64),
             power_price=np.asarray(prices, np.float64),
             gpu_id=np.array([GPU_IDS[sv.gpu] for sv in servers], np.int8),
@@ -217,6 +220,37 @@ class ClusterState:
             current_model=np.full(s, NO_MODEL, np.int16),
             warm_models=np.full((s, WARM_SLOTS), NO_MODEL, np.int16),
         )
+        for g, sv in enumerate(servers):
+            st.current_model[g] = model_id(sv.current_model)
+            for k, m in enumerate(sv.warm_models[:WARM_SLOTS]):
+                st.warm_models[g, k] = model_id(m)
+        return st
+
+    def to_cluster(self) -> Cluster:
+        """The object view of this state (every dynamic field, the warm
+        list without its ``NO_MODEL`` pad)."""
+        regions = []
+        for r in range(self.n_regions):
+            sl = self.region_slice(r)
+            servers = []
+            for g in range(sl.start, sl.stop):
+                cur = int(self.current_model[g])
+                servers.append(Server(
+                    gpu=GPU_NAMES[int(self.gpu_id[g])],
+                    capacity=float(self.capacity[g]),
+                    state=STATE_NAMES[int(self.state[g])],
+                    warm_remaining_s=float(self.warm_remaining_s[g]),
+                    current_model=None if cur == NO_MODEL
+                    else MODEL_NAMES[cur],
+                    warm_models=[MODEL_NAMES[int(m)]
+                                 for m in self.warm_models[g]
+                                 if m != NO_MODEL],
+                    queue_s=float(self.queue_s[g]),
+                    util=float(self.util[g]),
+                    idle_slots=int(self.idle_slots[g])))
+            regions.append(Region(idx=r, servers=servers,
+                                  power_price=float(self.power_price[r])))
+        return Cluster(regions)
 
     def copy(self) -> "ClusterState":
         return ClusterState(**{f.name: getattr(self, f.name).copy()

@@ -24,14 +24,16 @@ from repro.core.torta import TortaScheduler as RefTorta
 from repro.sim import Engine as RefEngine
 from repro.sim import make_cluster_state, make_topology, make_workload
 from repro.sim.cluster import throughput_per_slot
-from repro_torch.api import (LegacyOnlyView, LegacySchedulerAdapter,
-                             ensure_batch_scheduler, slot_to_batch_decision)
+from repro_torch.api import (BatchDecision, LegacyOnlyView,
+                             LegacySchedulerAdapter, ensure_batch_scheduler,
+                             slot_to_batch_decision)
 from repro_torch.baselines import (MilpScheduler, ReactiveOTScheduler,
                                    RoundRobinScheduler, SDIBScheduler,
                                    SkyLBScheduler)
 from repro_torch.core.torta import TortaScheduler
 from repro_torch.sim import make_topology as p_make_topology
 from repro_torch.sim.engine import Engine
+from repro_torch.sim.reference import ReferenceRoundRobinScheduler
 from repro_torch.sim.state import make_cluster_state as p_make_cluster_state
 from repro_torch.workload import TaskBatch
 from repro_torch.workload import make_workload as p_make_workload
@@ -168,13 +170,33 @@ def test_ensure_batch_scheduler_routes():
     assert isinstance(view, LegacySchedulerAdapter) and view.name == "SkyLB"
     assert isinstance(ensure_batch_scheduler(sky, force_adapter=True),
                       LegacySchedulerAdapter)
+
+    class BatchOnly:
+        name = "batch-only"
+
+        def reset(self):
+            pass
+
+        def schedule_batch(self, obs, batch):
+            n = len(batch)
+            return BatchDecision(region=np.full(n, -1, np.int32),
+                                 server=np.full(n, -1, np.int32))
+
     with pytest.raises(TypeError, match="batch-native only"):
-        ensure_batch_scheduler(TortaScheduler(2, device="cpu"),
-                               force_adapter=True)
+        ensure_batch_scheduler(BatchOnly(), force_adapter=True)
+    # TORTA has a legacy schedule(), so the adapter can be forced for it
+    assert isinstance(ensure_batch_scheduler(TortaScheduler(2, device="cpu"),
+                                             force_adapter=True),
+                      LegacySchedulerAdapter)
     with pytest.raises(TypeError, match="neither"):
         ensure_batch_scheduler(object())
-    with pytest.raises(NotImplementedError, match="sim/reference.py"):
-        LegacySchedulerAdapter(sky, obs_mode="cluster")
+    # the object Cluster view builds and schedules (the frozen RR on it)
+    cluster_view = LegacySchedulerAdapter(ReferenceRoundRobinScheduler(),
+                                          obs_mode="cluster")
+    *_, topo, cs, wl = _world("abilene", 2)
+    summary = Engine(topo, cs, wl, cluster_view, seed=4,
+                     device="cpu").run(2).summary()
+    assert summary["completed"] > 0
     with pytest.raises(ValueError, match="obs_mode"):
         LegacySchedulerAdapter(sky, obs_mode="objects")
 

@@ -59,6 +59,7 @@ from repro_torch.interop import (model_params_from_arrays,
 from repro_torch.models import Model
 from repro_torch.serving import Replica, ServingCluster
 from repro_torch.sim.engine import Engine
+from repro_torch.sim.reference import make_reference_torta
 from repro_torch.sim.state import make_cluster_state
 from repro_torch.sim.topology import Topology
 from repro_torch import train_lm
@@ -84,6 +85,15 @@ def test_port_files_include_the_train_slice():
     training script, so the import checks cover them."""
     for rel in ("data/__init__.py", "data/tokens.py", "train_lm.py",
                 "kernels/flash_prefill/autograd.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
+
+
+def test_port_files_include_the_object_path():
+    """The walk over the port's files reaches the frozen per-object oracle
+    and the modules of the object path, so the import checks cover
+    them."""
+    for rel in ("sim/reference.py", "sim/cluster.py", "core/torta.py",
+                "core/micro.py", "core/micro_state.py", "api/adapter.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
 
 
@@ -149,6 +159,9 @@ ENTRY_POINTS = {
         3, micro_backend="jax", micro_fused_kernel=True),
     "TortaScheduler(pallas)": lambda: TortaScheduler(3,
                                                      use_compat_kernel=True),
+    "TortaScheduler(sticky)": lambda: TortaScheduler(3,
+                                                     distribution="sticky"),
+    "make_reference_torta": lambda: make_reference_torta(3),
     "MicroAllocator(jax)": lambda: MicroAllocator(backend="jax"),
     "hw_load_matrix(pallas)": lambda: micro.hw_load_matrix(
         np.ones((2, 8)), np.ones((3, 8)), backend="pallas"),
