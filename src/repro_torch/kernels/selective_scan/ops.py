@@ -1,10 +1,13 @@
-"""Wrapper of the selective-scan kernel (``csrc/selective_scan.cu``).
+"""Wrappers of the selective-scan kernels: the forward
+(``csrc/selective_scan.cu``) and its gradient (``csrc/selective_scan_bwd.cu``).
 
 A CUDA tensor launches the hand-written kernel; a CPU tensor runs the
 plain version in ``ref.py``.  There is no fallback between the two.
 ``scan_plan`` lays the scan over the card (lanes a channel, channels a
-block, steps a stage, stages in the ring) so the CPU tests pin it.
-``selective_scan.launches`` counts calls that launch the kernel.
+block, steps a stage, stages in the ring) and ``bwd_plan`` the backward
+(channels a block, steps a chunk, shared memory, workspace), so the CPU
+tests pin them.  ``selective_scan.launches`` and
+``selective_scan_bwd.launches`` count calls that launch the kernels.
 """
 from __future__ import annotations
 
@@ -12,25 +15,32 @@ import ctypes
 import dataclasses
 import functools
 import pathlib
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, refuse_grad
-from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.kernels.selective_scan.ref import (STEPS,
+                                                   selective_scan_bwd_ref,
+                                                   selective_scan_ref)
 
 SOURCE = _build.KernelSource(
     "selective_scan",
     pathlib.Path(__file__).resolve().parent / "csrc" / "selective_scan.cu")
+# built with ptxas's report (registers, spills), which chip_smoke.py prints
+BWD_SOURCE = _build.KernelSource(
+    "selective_scan_bwd",
+    pathlib.Path(__file__).resolve().parent / "csrc" / "selective_scan_bwd.cu",
+    ("-Xptxas=-v",))
 STATE_DIMS = (4, 8, 16)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448           # dynamic shared memory a block may use (H100)
 THREADS = 128                 # threads a block (kThreads in the source)
 MAX_STAGES = 5
 # the plan (set from the on-card sweep, PERF.md §6): lanes a channel (the
-# build's SCAN_LANES), steps a stage, stages in flight
+# build's SCAN_LANES), steps a stage (STEPS, 64, defined in ref.py: a
+# stage is also a chunk of saved states), stages in flight
 LANES = 4
-STEPS = 64
 STAGES = 3
 SWEEP_LANES = (1, 2, 4, 8, 16)   # lane counts a build may be made for
 
@@ -143,7 +153,7 @@ def _lib(source: _build.KernelSource = SOURCE):
     lib = _build.load(source)
     fn = lib.selective_scan_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
+    fn.argtypes = [ptr] * 9 + [i32] * 10 + [ptr]
     fn.restype = ctypes.c_int
     smem = lib.selective_scan_smem_bytes
     smem.argtypes = [i32] * 5
@@ -175,21 +185,24 @@ def _check(dt, bm, cm, x, a, d_skip) -> None:
 
 
 def selective_scan(dt: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
-                   x: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   x: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor, *,
+                   states: bool = False):
     """dt, x: (B, S, D); bm, cm: (B, S, N), all float32 or all bfloat16;
     a: (D, N); d_skip: (D,) -> (y (B, S, D) in x's type, last state
-    (B, D, N) float32).  ``a`` and ``d_skip`` are read as float32."""
+    (B, D, N) float32).  ``a`` and ``d_skip`` are read as float32.  Given
+    ``states``, also the state each run of ``STEPS`` steps (a stage)
+    starts from, (B, ceil(S / STEPS), D, N) float32: the boundaries
+    :func:`selective_scan_bwd` rebuilds the states from."""
     if x.device.type == "cpu":
-        return selective_scan_ref(dt, bm, cm, x, a, d_skip)
+        return selective_scan_ref(dt, bm, cm, x, a, d_skip, states=states)
     if x.device.type != "cuda":
         raise ValueError(f"selective_scan: unsupported device {x.device}")
     refuse_grad("selective_scan", (dt, bm, cm, x, a, d_skip),
-                "the scan's backward, d dt, dB, dC, dx, dA and dD, is the "
-                "next slice of the port: Mamba layers do not train on the "
-                "card yet")
+                "its gradient is autograd.selective_scan_grad's, which "
+                "mamba_forward takes under grad")
     _check(dt, bm, cm, x, a, d_skip)
-    return _run(dt, bm, cm, x, a, d_skip, scan_plan(a.shape[-1], x.dtype))
+    plan = scan_plan(a.shape[-1], x.dtype)
+    return _run(dt, bm, cm, x, a, d_skip, plan, states=states)
 
 
 def run_plan(dt: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
@@ -202,7 +215,7 @@ def run_plan(dt: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
 
 
 def _run(dt, bm, cm, x, a, d_skip, plan: ScanPlan,
-         source: _build.KernelSource = SOURCE):
+         source: _build.KernelSource = SOURCE, states: bool = False):
     b, s, d = x.shape
     n = a.shape[-1]
     launch, smem_of, lanes = _lib(source)
@@ -216,19 +229,190 @@ def _run(dt, bm, cm, x, a, d_skip, plan: ScanPlan,
     a, d_skip = (t.to(torch.float32).contiguous() for t in (a, d_skip))
     y = torch.empty_like(x)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=x.device)
+    h_chunks = torch.empty((b, -(-s // plan.steps), d, n),
+                           dtype=torch.float32, device=x.device) \
+        if states else None
     e = _elt(x.dtype)
     gran_dx = granule(d * e, dt, x)
     gran_bc = granule(n * e, bm, cm)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = launch(dt.data_ptr(), bm.data_ptr(), cm.data_ptr(), x.data_ptr(),
                  a.data_ptr(), d_skip.data_ptr(), y.data_ptr(),
-                 h_last.data_ptr(), b, s, d, n, code, plan.lanes, plan.steps,
+                 h_last.data_ptr(), h_chunks.data_ptr() if states else None,
+                 b, s, d, n, code, plan.lanes, plan.steps,
                  plan.stages, gran_dx, gran_bc, stream)
     if err != 0:
         raise RuntimeError(f"selective_scan kernel launch failed: "
                            f"cudaError {err}")
     selective_scan.launches += 1
-    return y, h_last
+    return (y, h_last, h_chunks) if states else (y, h_last)
 
 
 selective_scan.launches = 0
+
+
+# ------------------------------------------------------------- backward
+
+BWD_THREADS = 256             # threads a block (kThreads in the source)
+
+
+class BwdPlan(NamedTuple):
+    """How one backward launch lays (B, S, D, N) over the card.  Block
+    (x, b) owns channels ``[x * channels, (x + 1) * channels)`` (cut at D)
+    of batch row b, thread t of it channel ``t // n`` and state ``t % n``
+    (``lanes`` = N lanes a channel); it walks the ``ceil(S / steps)``
+    chunks of ``steps`` steps in reverse, using ``smem`` bytes of dynamic
+    shared memory.  Its sums over its channels go into a workspace of
+    ``workspace_bytes`` that a second kernel adds up."""
+
+    lanes: int
+    channels: int
+    steps: int
+    smem: int
+    blocks: int
+    workspace_bytes: int
+
+    def grid(self, b: int) -> Tuple[int, int]:
+        """Blocks along channels and batch rows."""
+        return self.blocks, b
+
+    def chunks(self, s: int) -> int:
+        return -(-s // self.steps)
+
+    def channel_range(self, x: int, d: int) -> Tuple[int, int]:
+        """Block (x, .)'s channels."""
+        return x * self.channels, min((x + 1) * self.channels, d)
+
+    def step_range(self, k: int, s: int) -> Tuple[int, int]:
+        """Chunk k's steps."""
+        return k * self.steps, min((k + 1) * self.steps, s)
+
+    def thread(self, t: int) -> Tuple[int, int]:
+        """Thread t's channel in its block and its state."""
+        return t // self.lanes, t % self.lanes
+
+
+def bwd_smem_bytes(n: int, steps: int) -> int:
+    """Dynamic shared memory of one backward block: the chunk's states
+    (steps x channels x N), its dt, x, dy rows and the dx, d dt rows it
+    writes (steps x channels each), its Bm and Cm rows (steps x N
+    each), float32."""
+    c = BWD_THREADS // n
+    return 4 * steps * (c * n + 5 * c + 2 * n)
+
+
+def bwd_plan(b: int, s: int, d: int, n: int) -> BwdPlan:
+    """The backward's launch plan at (B, S, D, N), with chunks of
+    ``STEPS`` steps (the forward's steps a stage, whose boundary states
+    it starts from).  Raises on an N the kernel does not take."""
+    if n not in STATE_DIMS:
+        raise ValueError(f"selective_scan_bwd: N={n}, the kernel takes "
+                         f"{STATE_DIMS}")
+    c = BWD_THREADS // n
+    blocks = -(-d // c)
+    ws = 4 * (2 * b * s * blocks * n + b * d * n + b * d)
+    return BwdPlan(n, c, STEPS, bwd_smem_bytes(n, STEPS), blocks, ws)
+
+
+@functools.cache
+def _bwd_lib():
+    """The backward's launcher and plan queries, bound once per process."""
+    lib = _build.load(BWD_SOURCE)
+    fn = lib.selective_scan_bwd_launch
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr] * 16 + [i32] * 5 + [ptr]
+    fn.restype = i32
+    lib.selective_scan_bwd_smem_bytes.argtypes = [i32] * 2
+    lib.selective_scan_bwd_smem_bytes.restype = i32
+    lib.selective_scan_bwd_workspace_bytes.argtypes = [i32] * 4
+    lib.selective_scan_bwd_workspace_bytes.restype = ctypes.c_longlong
+    lib.selective_scan_bwd_threads.restype = i32
+    return (fn, lib.selective_scan_bwd_smem_bytes,
+            lib.selective_scan_bwd_workspace_bytes,
+            lib.selective_scan_bwd_threads())
+
+
+def _check_bwd(dt, bm, cm, x, a, d_skip, dy, dh_last, h_chunks) -> None:
+    """Raise on any operand the backward kernel does not take."""
+    b, s, d = x.shape
+    n = a.shape[-1]
+    want = {"dt": (b, s, d), "bm": (b, s, n), "cm": (b, s, n),
+            "a": (d, n), "d_skip": (d,), "dy": (b, s, d),
+            "dh_last": (b, d, n), "h_chunks": (b, -(-s // STEPS), d, n)}
+    given = {"dt": dt, "bm": bm, "cm": cm, "x": x, "a": a, "d_skip": d_skip,
+             "dy": dy, "dh_last": dh_last, "h_chunks": h_chunks}
+    types = (torch.float32,) if x.device.type == "cuda" \
+        else (torch.float32, torch.float64)
+    for name, t in given.items():
+        if t is None and name in ("dh_last", "h_chunks"):
+            continue
+        if name != "x" and (tuple(t.shape) != want[name]
+                            or t.device != x.device):
+            raise ValueError(f"selective_scan_bwd: {name} must be "
+                             f"{want[name]} on {x.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+        if t.dtype not in types or (t.dtype != x.dtype
+                                    and name != "h_chunks"):
+            raise ValueError(f"selective_scan_bwd: {name} is {t.dtype}, x "
+                             f"{x.dtype}; the kernel takes float32 operands "
+                             f"(the plain version float64 too, on the CPU)")
+    if n not in STATE_DIMS or s < 1:
+        raise ValueError(f"selective_scan_bwd: N={n}, S={s}; the kernel "
+                         f"takes N in {STATE_DIMS}, S >= 1")
+
+
+def selective_scan_bwd(dt: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
+                       x: torch.Tensor, a: torch.Tensor, d_skip: torch.Tensor,
+                       dy: torch.Tensor,
+                       dh_last: Optional[torch.Tensor] = None, *,
+                       h_chunks: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`selective_scan`'s (y, h_last) given ``dy``
+    (B, S, D) and ``dh_last`` (B, D, N, or None for 0) -> (d dt, d bm,
+    d cm, d x, d a, d d_skip).  On the card every operand is float32 and
+    ``h_chunks`` is what the forward returned given ``states``; on
+    the CPU the plain version rebuilds the states itself and ``h_chunks``
+    is only checked."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"selective_scan_bwd: unsupported device "
+                         f"{x.device}")
+    _check_bwd(dt, bm, cm, x, a, d_skip, dy, dh_last, h_chunks)
+    if x.device.type == "cpu":
+        return selective_scan_bwd_ref(dt, bm, cm, x, a, d_skip, dy, dh_last)
+    refuse_grad("selective_scan_bwd", (dt, bm, cm, x, a, d_skip, dy,
+                                       dh_last), "it has no double backward")
+    if h_chunks is None:
+        raise ValueError("selective_scan_bwd: on the card it needs the "
+                         "forward's h_chunks (selective_scan(..., "
+                         "states=True))")
+    b, s, d = x.shape
+    n = a.shape[-1]
+    plan = bwd_plan(b, s, d, n)
+    launch, smem_of, ws_of, threads = _bwd_lib()
+    if (threads != BWD_THREADS or smem_of(n, STEPS) != plan.smem
+            or ws_of(b, s, d, n) != plan.workspace_bytes):
+        raise RuntimeError(f"selective_scan_bwd: {plan} disagrees with the "
+                           f"build {BWD_SOURCE.name}")
+    dt, bm, cm, x, a, d_skip, dy, h_chunks = (
+        t.contiguous() for t in (dt, bm, cm, x, a, d_skip, dy, h_chunks))
+    if dh_last is not None:
+        dh_last = dh_last.contiguous()
+    grads = tuple(torch.empty_like(t) for t in (dt, bm, cm, x, a, d_skip))
+    ws = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32,
+                     device=x.device)
+    d_dt, d_bm, d_cm, d_x, d_a, d_d = grads
+    err = launch(dt.data_ptr(), bm.data_ptr(), cm.data_ptr(), x.data_ptr(),
+                 a.data_ptr(), d_skip.data_ptr(), dy.data_ptr(),
+                 None if dh_last is None else dh_last.data_ptr(),
+                 h_chunks.data_ptr(), d_dt.data_ptr(), d_bm.data_ptr(),
+                 d_cm.data_ptr(), d_x.data_ptr(), d_a.data_ptr(),
+                 d_d.data_ptr(), ws.data_ptr(), b, s, d, n, STEPS,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"selective_scan_bwd kernel launch failed: "
+                           f"cudaError {err}")
+    selective_scan_bwd.launches += 1
+    return grads
+
+
+selective_scan_bwd.launches = 0

@@ -2,7 +2,9 @@
 ``repro/models/mamba.py``.
 
 Prefill runs the scan through the ``selective_scan`` kernel, which also
-returns the last state for the decode cache; decode keeps an O(1)
+returns the last state for the decode cache; under grad (training) it
+takes the kernel's autograd path, whose backward is the
+``selective_scan_bwd`` kernel.  Decode keeps an O(1)
 recurrent state ``(B, d_inner, d_state)`` plus the last ``d_conv - 1`` raw
 inputs of the depthwise conv, and is a one-token recurrence in plain
 torch, as in the reference.
@@ -15,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ArchConfig, SSMConfig
+from repro_torch.kernels.selective_scan import autograd as scan_autograd
 from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.models.params import ParamDesc
 
@@ -64,14 +67,21 @@ def _causal_conv(p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 def mamba_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
                   return_state: bool = False):
-    """Full-sequence scan. x: (B, S, D) -> (B, S, D)[, (h_last, conv_state)]."""
+    """Full-sequence scan. x: (B, S, D) -> (B, S, D)[, (h_last, conv_state)].
+    Under grad (grad mode on and an operand of the scan requiring grad)
+    the scan goes through :func:`scan_autograd.selective_scan_grad`, the
+    same forward with its backward kernel; otherwise straight to
+    :func:`scan_ops.selective_scan`."""
     xz = x @ p["in_proj"]
     xi_raw, z = xz.chunk(2, dim=-1)                      # (B,S,d_in)
     xi = _causal_conv(p, xi_raw)
     dt, bm, cm = _ssm_inputs(p, xi, cfg)                 # f32
     a = -torch.exp(p["a_log"].float())                   # (d_in, N)
-    y, h_last = scan_ops.selective_scan(dt, bm, cm, xi.float(), a,
-                                        p["d_skip"])
+    scan = scan_ops.selective_scan
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (dt, bm, cm, xi, a, p["d_skip"])):
+        scan = scan_autograd.selective_scan_grad
+    y, h_last = scan(dt, bm, cm, xi.float(), a, p["d_skip"])
     y = y.to(x.dtype) * F.silu(z)
     out = y @ p["out_proj"]
     if not return_state:

@@ -3,7 +3,8 @@
 
 The parameters are a sequence of tensors (``list(module.parameters())``);
 ``update`` returns one update a parameter and the new state, and
-``apply_updates`` adds them in place.  The arithmetic keeps the
+``apply_updates`` adds them in place.  ``Adam.update_in_place`` gives the
+same bits with less memory, for the LM train step.  The arithmetic keeps the
 reference's expression order, so a loss curve follows the reference's:
 float32 moments, the bias corrections ``1 - b ** step`` in float32, the
 step ``(m / bc1) / (sqrt(v / bc2) + eps)``, and the global-norm scale
@@ -21,6 +22,11 @@ import numpy as np
 import torch
 
 Schedule = Union[float, Callable[[int], np.float32]]
+# elements the in-place update takes at a time: a stacked parameter (a
+# group's layers in one tensor, 7.25 GB for falcon-mamba-7b's in_proj at 27
+# layers) is updated a piece at a time, so the temporaries are a piece's;
+# the operations are elementwise, so the bits are the same
+PIECE = 1 << 26
 
 
 class AdamState(NamedTuple):
@@ -57,20 +63,53 @@ class Adam:
         if self.grad_clip is not None:
             grads = clip_by_global_norm(grads, self.grad_clip)
         step = state.step + 1
-        b1, b2 = self.b1, self.b2
-        m = [b1 * mm + (1 - b1) * g.float() for mm, g in zip(state.m, grads)]
-        v = [b2 * vv + (1 - b2) * torch.square(g.float())
-             for vv, g in zip(state.v, grads)]
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(step))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(step))
-        neg_lr = float(-_lr_at(self.lr, step))
-        updates = []
-        for mm, vv, p in zip(m, v, params):
-            u = (mm / bc1) / (torch.sqrt(vv / bc2) + self.eps)
-            if self.weight_decay:
-                u = u + self.weight_decay * p.float()
-            updates.append((neg_lr * u).to(p.dtype))
+        m = [torch.empty_like(mm) for mm in state.m]
+        v = [torch.empty_like(vv) for vv in state.v]
+        scalars = self._scalars(step)
+        updates = [self._step(scalars, *tensors)
+                   for tensors in zip(grads, state.m, state.v, params, m, v)]
         return updates, AdamState(step, m, v)
+
+    @torch.no_grad()
+    def update_in_place(self, grads: Sequence[torch.Tensor], state: AdamState,
+                        params: Sequence[torch.Tensor]) -> AdamState:
+        """:meth:`update` then :func:`apply_updates`, the same bits, in
+        place: the gradients are clipped in place, ``state``'s moments are
+        updated in place (the returned state holds the same tensors), and
+        each parameter takes its step as soon as it is computed.  It keeps
+        16 B a float32 parameter (the parameter, its gradient, m and v)
+        where :meth:`update` keeps 32 (a clipped copy of the gradients, the
+        old and the new moments, the updates), and takes each tensor
+        ``PIECE`` elements at a time."""
+        if self.grad_clip is not None:
+            clip_by_global_norm_(grads, self.grad_clip)
+        step = state.step + 1
+        scalars = self._scalars(step)
+        for g, mm, vv, p in zip(grads, state.m, state.v, params):
+            for gp, mp, vp, pp in _pieces(g, mm, vv, p):
+                pp.add_(self._step(scalars, gp, mp, vp, pp, mp, vp))
+        return AdamState(step, state.m, state.v)
+
+    def _scalars(self, step: int) -> Tuple[float, float, float]:
+        """Step ``step``'s bias corrections and negated learning rate."""
+        bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(step))
+        bc2 = float(np.float32(1) - np.float32(self.b2) ** np.float32(step))
+        return bc1, bc2, float(-_lr_at(self.lr, step))
+
+    def _step(self, scalars: Tuple[float, float, float], g: torch.Tensor,
+              m: torch.Tensor, v: torch.Tensor, p: torch.Tensor,
+              m_out: torch.Tensor, v_out: torch.Tensor) -> torch.Tensor:
+        """One tensor's Adam step: the new moments into ``m_out`` and
+        ``v_out`` (``m`` and ``v`` themselves in place), and the update of
+        ``p``, returned."""
+        bc1, bc2, neg_lr = scalars
+        g = g.float()
+        torch.mul(m, self.b1, out=m_out).add_((1 - self.b1) * g)
+        torch.mul(v, self.b2, out=v_out).add_((1 - self.b2) * torch.square(g))
+        u = (m_out / bc1) / (torch.sqrt(v_out / bc2) + self.eps)
+        if self.weight_decay:
+            u = u + self.weight_decay * p.float()
+        return (neg_lr * u).to(p.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +135,17 @@ class Sgd:
                 AdamState(step, state.m, state.v))
 
 
+def _pieces(*tensors: torch.Tensor):
+    """Matching flat pieces of ``PIECE`` elements of same-shaped tensors,
+    views into them (the whole tensors where one is not contiguous)."""
+    if not all(t.is_contiguous() for t in tensors):
+        yield tensors
+        return
+    flat = [t.view(-1) for t in tensors]
+    for i in range(0, flat[0].numel(), PIECE):
+        yield tuple(f[i:i + PIECE] for f in flat)
+
+
 @torch.no_grad()
 def apply_updates(params: Sequence[torch.Tensor],
                   updates: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
@@ -105,10 +155,29 @@ def apply_updates(params: Sequence[torch.Tensor],
     return params
 
 
+def _clip_scale(grads: Sequence[torch.Tensor], max_norm: float
+                ) -> torch.Tensor:
+    sq = sum(torch.sum(torch.square(g.float())) for g in grads)
+    norm = torch.sqrt(sq)
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 @torch.no_grad()
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
                         ) -> List[torch.Tensor]:
-    sq = sum(torch.sum(torch.square(g.float())) for g in grads)
-    norm = torch.sqrt(sq)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return [(g.float() * scale).to(g.dtype) for g in grads]
+    """The gradients scaled to a global norm of at most ``max_norm``, as
+    copies (:func:`clip_by_global_norm_` scales them in place)."""
+    copies = [g.clone() for g in grads]
+    clip_by_global_norm_(copies, max_norm)
+    return copies
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float
+                         ) -> None:
+    """:func:`clip_by_global_norm` into the gradients themselves, a
+    ``PIECE`` at a time."""
+    scale = _clip_scale(grads, max_norm)
+    for whole in grads:
+        for (g,) in _pieces(whole):
+            g.copy_(g.float() * scale)

@@ -5,8 +5,9 @@ parameters, so the steps take none.  The serving steps build no autograd
 graph: the parameters are frozen, and the train step enables their
 gradients for its own call only.  Under grad, causal self-attention
 takes the ``flash_prefill`` kernel's autograd path
-(``kernels/flash_prefill/autograd.py``); a Mamba layer's scan has no
-backward on the card yet and raises there."""
+(``kernels/flash_prefill/autograd.py``) and a Mamba layer's scan the
+``selective_scan`` kernel's (``kernels/selective_scan/autograd.py``),
+whose backward is the ``selective_scan_bwd`` kernel."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
@@ -14,7 +15,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.models.model import Model
-from repro_torch.optim.adam import Adam, AdamState, apply_updates
+from repro_torch.optim.adam import Adam, AdamState
 from repro_torch.serving import sampling
 
 
@@ -80,8 +81,10 @@ def train_grads(model: Model, batch: Dict[str, torch.Tensor],
 
 def make_train_step(model: Model, optimizer: Adam, aux_weight: float = 0.01):
     """One optimizer step on a batch: :func:`train_grads`, then
-    ``optimizer.update`` and ``apply_updates`` into the model's
-    parameters in place.  The model holds its parameters, so the step
+    ``optimizer.update_in_place``: ``update`` and ``apply_updates`` into
+    the model's parameters, the same bits, with the gradients and the
+    state's moments updated in place (16 B a float32 parameter, not 32).
+    The model holds its parameters, so the step
     takes ``(opt_state, batch)`` and returns ``(opt_state, metrics)``;
     ``opt_state`` is ``optimizer.init(list(model.parameters()))``.  The
     gradients are in the parameters' registration order, which
@@ -91,9 +94,7 @@ def make_train_step(model: Model, optimizer: Adam, aux_weight: float = 0.01):
     def train_step(opt_state: AdamState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[AdamState, Dict[str, torch.Tensor]]:
         grads, metrics = train_grads(model, batch, aux_weight)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        apply_updates(params, updates)
-        return opt_state, metrics
+        return optimizer.update_in_place(grads, opt_state, params), metrics
 
     return train_step
 

@@ -70,8 +70,13 @@ from repro_torch.data import SyntheticLMData, batch_iterator
 from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.flash_prefill import autograd as prefill_autograd
 from repro_torch.kernels.flash_prefill import flash_prefill_ref
+from repro_torch.kernels.selective_scan import autograd as scan_autograd
+from repro_torch.kernels.selective_scan import ops as scan_ops
+from repro_torch.kernels.selective_scan import selective_scan_ref
 from repro_torch.models import Model
 from repro_torch.optim import Adam
+from repro_torch.optim import adam as adam_mod
+from repro_torch.optim.adam import apply_updates, clip_by_global_norm
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.serving import steps
 from test_torch_models import _close, _pair
@@ -173,11 +178,15 @@ def test_lm_loss_with_vision_prefix_labels():
 # (changes to both reduced configs, float64 on both sides, gradient
 # tolerance): mixtral's window cut to 8 of the batch's 16 positions, so
 # the gradient crosses the window's mask, and its experts add the
-# balance loss
+# balance loss; of the Mamba configs only falcon-mamba-7b (jamba's jitted
+# reference step alone takes ~50 s here: its first-step gradients are held
+# by test_mamba_gradients_on_the_cpu_match_reference and its autograd path
+# by test_scan_gradient_through_the_autograd_path)
 CASES = {"tinyllama-1.1b": ({}, False, 5e-4),
          "mixtral-8x7b": ({"sliding_window": 8}, False, 5e-4),
          "whisper-small": ({}, True, 1e-3),
-         "paligemma-3b": ({}, False, 5e-4)}
+         "paligemma-3b": ({}, False, 5e-4),
+         "falcon-mamba-7b": ({}, False, 5e-4)}
 B, S, STEPS = 2, 16, 3
 GRAD_TOL, GRAD_FLOOR = 5e-4, 1e-2
 LOSS_TOL, LATER_TOL = 1e-5, 1e-3
@@ -223,6 +232,20 @@ def _ref_grads(ref, params, batch):
     return jax.jit(jax.grad(loss_fn))(params)
 
 
+# the reference's first-step gradients by config, computed once a process:
+# test_train_step_matches_reference and
+# test_mamba_gradients_on_the_cpu_match_reference hold the same ones (the
+# same weights and first batch), and the jit of a Mamba config's gradient
+# takes 2-9 s
+_FIRST_GRADS = {}
+
+
+def _first_ref_grads(arch, ref, params, batch):
+    if arch not in _FIRST_GRADS:
+        _FIRST_GRADS[arch] = _ref_grads(ref, params, batch)
+    return _FIRST_GRADS[arch]
+
+
 def _leaf(tree, name: str):
     """The reference tree's leaf at a port parameter's name
     (``params.groups.pos0.mixer.wq`` -> ``tree["groups"]["pos0"]...``)."""
@@ -256,7 +279,8 @@ def test_train_step_matches_reference(arch):
         tbatches = [{k: torch.from_numpy(v) for k, v in b.items()}
                     for b in batches]
         grads, _ = steps.train_grads(port, tbatches[0])
-        _hold_grads(port, grads, _ref_grads(ref, params, jbatches[0]),
+        _hold_grads(port, grads,
+                    _first_ref_grads(arch, ref, params, jbatches[0]),
                     arch, CASES[arch][2])
         ref_opt = RefAdam(lr=ref_warmup_cosine(3e-3, 2, STEPS),
                           grad_clip=1.0)
@@ -285,16 +309,19 @@ def test_train_step_matches_reference(arch):
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b"])
 def test_mamba_gradients_on_the_cpu_match_reference(arch):
-    """On the CPU the scan is its plain version, which autograd
-    differentiates: the first step's gradients of the Mamba configs hold
-    the same rule (the card refuses to train them until the scan has a
-    backward there)."""
+    """With the scan's autograd path differentiated by autograd of the
+    plain version (``selective_scan_grad`` replaced by
+    ``selective_scan_ref``), the first step's gradients of the Mamba
+    configs hold the same rule."""
     ref, params, port = _pair(arch)
     batch = _batches(ref.cfg, 1)[0]
-    grads, _ = steps.train_grads(
-        port, {k: torch.from_numpy(v) for k, v in batch.items()})
-    _hold_grads(port, grads, _ref_grads(
-        ref, params, {k: jnp.asarray(v) for k, v in batch.items()}), arch)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(scan_autograd, "selective_scan_grad", selective_scan_ref)
+        grads, _ = steps.train_grads(
+            port, {k: torch.from_numpy(v) for k, v in batch.items()})
+    _hold_grads(port, grads, _first_ref_grads(
+        arch, ref, params, {k: jnp.asarray(v) for k, v in batch.items()}),
+        arch)
 
 
 @pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mixtral-8x7b"])
@@ -315,6 +342,69 @@ def test_attention_gradient_through_the_autograd_path(arch, monkeypatch):
             assert float(w.abs().max()) > 0, name
             torch.testing.assert_close(
                 g, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-v0.1-52b"])
+def test_scan_gradient_through_the_autograd_path(arch, monkeypatch):
+    """Every Mamba parameter gets a nonzero gradient through the
+    ``selective_scan`` autograd path (its backward the plain reverse
+    recurrence on the CPU), equal (1e-5 of the largest entry) to the one
+    autograd takes through the plain forward; the path runs once a Mamba
+    layer."""
+    _, _, port = _pair(arch)
+    batch = {k: torch.from_numpy(v) for k, v in _batches(port.cfg, 1)[0]
+             .items()}
+    names = [n for n, _ in port.named_parameters()]
+    calls = []
+    bwd = scan_ops.selective_scan_bwd
+    monkeypatch.setattr(scan_ops, "selective_scan_bwd",
+                        lambda *a, **k: (calls.append(1), bwd(*a, **k))[1])
+    got, _ = steps.train_grads(port, batch)
+    assert len(calls) == sum(k == "mamba" for k in port.period) * \
+        port.cfg.num_layers // len(port.period)
+    monkeypatch.setattr(scan_autograd, "selective_scan_grad",
+                        selective_scan_ref)
+    want, _ = steps.train_grads(port, batch)
+    mamba_keys = {"in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
+                  "dt_bias", "a_log", "d_skip", "out_proj"}
+    for name, g, w in zip(names, got, want):
+        if name.split(".")[-1] in mamba_keys:
+            assert float(w.abs().max()) > 0, name
+            torch.testing.assert_close(
+                g, w, rtol=0, atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("clip,decay", [(None, 0.0), (1.0, 0.01)])
+def test_adam_update_in_place_is_update_and_apply(clip, decay, monkeypatch):
+    """The train step's ``update_in_place`` gives the same bits as
+    ``update`` then ``apply_updates``: the parameters and the moments
+    over three steps, the gradients clipped in place as ``update`` clips
+    a copy, each tensor taken in pieces of 7 elements (and a transposed
+    gradient whole)."""
+    monkeypatch.setattr(adam_mod, "PIECE", 7)
+    rng = np.random.default_rng(9)
+    shapes = [(3, 5), (7,), (2, 2, 4), (0, 3)]
+    opt = Adam(lr=warmup_cosine(3e-3, 2, 3), grad_clip=clip,
+               weight_decay=decay)
+    params = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for s in shapes]
+    twins = [p.clone() for p in params]
+    state, twin_state = opt.init(params), opt.init(twins)
+    for _ in range(3):
+        grads = [torch.from_numpy(3 * rng.standard_normal(s).astype(
+            np.float32)) for s in shapes]
+        grads[0] = grads[0].T.contiguous().T
+        updates, state = opt.update(grads, state, params)
+        apply_updates(params, updates)
+        kept = [g.clone() for g in grads]
+        twin_state = opt.update_in_place(grads, twin_state, twins)
+        if clip is not None:
+            for g, k in zip(grads, clip_by_global_norm(kept, clip)):
+                assert torch.equal(g, k)
+    assert twin_state.step == state.step == 3
+    for got, want in zip(twins + twin_state.m + twin_state.v,
+                         params + state.m + state.v):
+        assert torch.equal(got, want)
 
 
 def test_train_step_leaves_serving_without_graph():
@@ -338,10 +428,11 @@ def test_refuse_grad_only_under_grad():
     ``no_grad``."""
     x = torch.zeros(3, requires_grad=True)
     frozen, ids = torch.zeros(3), torch.zeros(3, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="selective_scan.*the "
-                       "next slice"):
+    with pytest.raises(NotImplementedError, match="selective_scan.*"
+                       "autograd.selective_scan_grad"):
         refuse_grad("selective_scan", (frozen, x, None),
-                    "the scan's backward is the next slice")
+                    "its gradient is autograd.selective_scan_grad's, which "
+                    "mamba_forward takes under grad")
     refuse_grad("selective_scan", (frozen, ids, None), "-")
     with torch.no_grad():
         refuse_grad("selective_scan", (x,), "-")
