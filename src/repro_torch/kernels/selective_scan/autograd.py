@@ -3,7 +3,7 @@
 
 The forward is the hand-written kernel on the card (the plain version on
 the CPU), run with ``states`` so that it also returns the state each
-chunk of ``ops.STEPS`` steps starts from.  The backward is
+chunk of ``ops.STEPS`` (16) steps starts from.  The backward is
 ``ops.selective_scan_bwd``, the hand-written backward kernel on the card
 (the plain reverse recurrence on the CPU), which rebuilds each chunk's
 states from those boundaries.  Both are looked up on ``ops`` at each call.

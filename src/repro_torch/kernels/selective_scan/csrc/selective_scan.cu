@@ -8,11 +8,13 @@
 // y is written in the input type; the last state h_{S-1} (B, D, N) is
 // written in float32 too (the Pallas kernel keeps it in scratch only; the
 // port's mamba_forward needs it for the decode cache).  Given h_chunks,
-// the state each stage of `steps` steps starts from, h_{k steps - 1}
-// (zeros for k = 0), is written there too, (B, ceil(S / steps), D, N)
+// the state each chunk of `chunk` steps starts from, h_{k chunk - 1}
+// (zeros for k = 0), is written there too, (B, ceil(S / chunk), D, N)
 // float32: the boundaries the backward (selective_scan_bwd.cu) rebuilds
-// each stage's states from.  The stores leave the arithmetic as it is,
-// so y and h_last are the same bits with and without them.
+// each chunk's states from (chunk = ref.STEPS, 16, a multiple of a
+// register group's steps, so every boundary starts a group).  The stores
+// leave the arithmetic as it is, so y and h_last are the same bits with
+// and without them.
 //
 // What bounds it on the H100: the exponentials and the bytes.  Each
 // (b, s, d, n) costs one exp and four float32 operations (dt A, the two
@@ -175,8 +177,9 @@ struct Params {
   const float* d_skip;
   void* y;
   float* h_last;
-  float* h_chunks;       // null, or the state each stage starts from
+  float* h_chunks;       // null, or the state each chunk starts from
   int b, s, d;
+  int chunk;             // steps a saved state (with h_chunks)
   int channels;          // channels a block
   int steps;             // steps a stage
   int stages;            // stage buffers in the ring
@@ -260,6 +263,12 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Params p) {
   const float xd = (live && j == 0) ? p.d_skip[d] : 0.0f;
 
   const int n_st = (p.s + tsteps - 1) / tsteps;
+  // the next chunk boundary to save the state at, and its chunk
+  int save_at = p.h_chunks != nullptr ? 0 : -1, save_k = 0;
+  float* hc = p.h_chunks == nullptr ? nullptr
+      : p.h_chunks + ((long long)b * ((p.s + p.chunk - 1) / p.chunk) * p.d
+                      + d) * N + j * P;
+  const long long hc_step = (long long)p.d * N;
   for (int stage = 0; stage < p.stages - 1; ++stage) {
     if (stage < n_st) issue(stage);
     cp_async_commit();
@@ -270,12 +279,6 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Params p) {
     __syncthreads();                      // and the previous one is used
     if (stage + p.stages - 1 < n_st) issue(stage + p.stages - 1);
     cp_async_commit();
-    if (p.h_chunks != nullptr && live) {
-      float* hc = p.h_chunks + (((long long)b * n_st + stage) * p.d + d) * N
-                  + j * P;
-#pragma unroll
-      for (int q = 0; q < P; ++q) hc[q] = h[q];
-    }
     const unsigned char* buf = smem + (stage % p.stages) * sbytes;
     const T* sdt = (const T*)buf + c;
     const T* sx = (const T*)(buf + dx_bytes) + c;
@@ -303,6 +306,14 @@ __global__ void __launch_bounds__(kThreads, 1) scan_kernel(const Params p) {
     // every L steps are summed across the channel's L lanes, transposed:
     // lane j ends with step j's whole sum and stores it
     auto compute = [&](const Group<P, U>& o, int g, bool tail) {
+      if (t0 + g == save_at) {          // a chunk starts with this group
+        if (live) {
+#pragma unroll
+          for (int q = 0; q < P; ++q) hc[save_k * hc_step + q] = h[q];
+        }
+        save_at += p.chunk;
+        ++save_k;
+      }
       float acc[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
@@ -395,23 +406,26 @@ int selective_scan_smem_bytes(int n, int dtype, int lanes, int steps,
 
 // dt and x (B, S, D), bm and cm (B, S, N) in one type (dtype 0: float32,
 // 1: bfloat16), y (B, S, D) in that type; a (D, N), d_skip (D,) and
-// h_last (B, D, N) float32; h_chunks null or (B, ceil(S / steps), D, N)
-// float32; all contiguous.  N in {4, 8, 16}, divisible
+// h_last (B, D, N) float32; h_chunks null or (B, ceil(S / chunk), D, N)
+// float32, chunk a multiple of a register group's steps; all
+// contiguous.  N in {4, 8, 16}, divisible
 // by the build's lanes; the plan's knobs as ops.ScanPlan documents them
 // (a block is kThreads threads, kThreads / lanes channels).  Returns the
 // launch's cudaError_t.
 int selective_scan_launch(const void* dt, const void* bm, const void* cm,
                           const void* x, const float* a, const float* d_skip,
                           void* y, float* h_last, float* h_chunks, int b,
-                          int s, int d, int n,
+                          int s, int d, int n, int chunk,
                           int dtype, int lanes, int steps, int stages,
                           int gran_dx, int gran_bc, void* stream) {
   if (b <= 0 || s <= 0 || d <= 0) return 0;
   if (b > 65535 || lanes != kLanes || n % lanes != 0 || steps < 1 ||
-      steps % (2 * group_steps(n / lanes)) != 0 || stages < 2 || stages > 5)
+      steps % (2 * group_steps(n / lanes)) != 0 || stages < 2 || stages > 5 ||
+      (h_chunks != nullptr &&
+       (chunk < 1 || chunk % group_steps(n / lanes) != 0)))
     return (int)cudaErrorInvalidValue;
   const Params p{dt, bm, cm, x, a, d_skip, y, h_last, h_chunks, b, s, d,
-                 kThreads / lanes, steps, stages, gran_dx, gran_bc};
+                 chunk, kThreads / lanes, steps, stages, gran_dx, gran_bc};
   cudaStream_t strm = (cudaStream_t)stream;
   if (dtype == 0) return (int)launch<float>(p, n, strm);
   if (dtype == 1) return (int)launch<__nv_bfloat16>(p, n, strm);

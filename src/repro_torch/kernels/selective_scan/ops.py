@@ -5,9 +5,10 @@ A CUDA tensor launches the hand-written kernel; a CPU tensor runs the
 plain version in ``ref.py``.  There is no fallback between the two.
 ``scan_plan`` lays the scan over the card (lanes a channel, channels a
 block, steps a stage, stages in the ring) and ``bwd_plan`` the backward
-(channels a block, steps a chunk, shared memory, workspace), so the CPU
-tests pin them.  ``selective_scan.launches`` and
-``selective_scan_bwd.launches`` count calls that launch the kernels.
+(lanes a channel, warps and channels a block, steps a chunk, shared
+memory, workspace), so the CPU tests pin them.
+``selective_scan.launches`` and ``selective_scan_bwd.launches`` count
+calls that launch the kernels.
 """
 from __future__ import annotations
 
@@ -38,9 +39,11 @@ SMEM_LIMIT = 232448           # dynamic shared memory a block may use (H100)
 THREADS = 128                 # threads a block (kThreads in the source)
 MAX_STAGES = 5
 # the plan (set from the on-card sweep, PERF.md §6): lanes a channel (the
-# build's SCAN_LANES), steps a stage (STEPS, 64, defined in ref.py: a
-# stage is also a chunk of saved states), stages in flight
+# build's SCAN_LANES), steps a stage, stages in flight.  Given ``states``
+# the forward saves a state every ``STEPS`` (16, ref.py) steps, the
+# backward's chunk; a stage is several chunks.
 LANES = 4
+STAGE_STEPS = 64
 STAGES = 3
 SWEEP_LANES = (1, 2, 4, 8, 16)   # lane counts a build may be made for
 
@@ -109,12 +112,12 @@ def smem_bytes(n: int, dtype: torch.dtype, lanes: int, steps: int,
 
 
 def scan_plan(n: int, dtype: torch.dtype, *, lanes: int = LANES,
-              steps: int = STEPS, stages: int = STAGES) -> ScanPlan:
+              steps: int = STAGE_STEPS, stages: int = STAGES) -> ScanPlan:
     """The launch plan for N states in ``dtype``: blocks of ``THREADS``
     threads, ``THREADS / lanes`` channels, ``LANES`` lanes a channel,
-    stages of ``STEPS`` steps, ``STAGES`` in flight.  Keywords force a
-    knob (the on-card sweep; lanes other than ``LANES`` need the build
-    ``lanes_source`` gives).  Raises on a plan the kernel cannot run."""
+    stages of ``STAGE_STEPS`` steps, ``STAGES`` in flight.  Keywords
+    force a knob (the on-card sweep; lanes other than ``LANES`` need the
+    build ``lanes_source`` gives).  Raises on a plan the kernel cannot run."""
     if n not in STATE_DIMS:
         raise ValueError(f"selective_scan: N={n}, the kernel takes "
                          f"{STATE_DIMS}")
@@ -153,7 +156,7 @@ def _lib(source: _build.KernelSource = SOURCE):
     lib = _build.load(source)
     fn = lib.selective_scan_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 9 + [i32] * 10 + [ptr]
+    fn.argtypes = [ptr] * 9 + [i32] * 11 + [ptr]
     fn.restype = ctypes.c_int
     smem = lib.selective_scan_smem_bytes
     smem.argtypes = [i32] * 5
@@ -190,7 +193,7 @@ def selective_scan(dt: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
     """dt, x: (B, S, D); bm, cm: (B, S, N), all float32 or all bfloat16;
     a: (D, N); d_skip: (D,) -> (y (B, S, D) in x's type, last state
     (B, D, N) float32).  ``a`` and ``d_skip`` are read as float32.  Given
-    ``states``, also the state each run of ``STEPS`` steps (a stage)
+    ``states``, also the state each run of ``STEPS`` steps (a chunk)
     starts from, (B, ceil(S / STEPS), D, N) float32: the boundaries
     :func:`selective_scan_bwd` rebuilds the states from."""
     if x.device.type == "cpu":
@@ -229,7 +232,7 @@ def _run(dt, bm, cm, x, a, d_skip, plan: ScanPlan,
     a, d_skip = (t.to(torch.float32).contiguous() for t in (a, d_skip))
     y = torch.empty_like(x)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=x.device)
-    h_chunks = torch.empty((b, -(-s // plan.steps), d, n),
+    h_chunks = torch.empty((b, -(-s // STEPS), d, n),
                            dtype=torch.float32, device=x.device) \
         if states else None
     e = _elt(x.dtype)
@@ -239,7 +242,7 @@ def _run(dt, bm, cm, x, a, d_skip, plan: ScanPlan,
     err = launch(dt.data_ptr(), bm.data_ptr(), cm.data_ptr(), x.data_ptr(),
                  a.data_ptr(), d_skip.data_ptr(), y.data_ptr(),
                  h_last.data_ptr(), h_chunks.data_ptr() if states else None,
-                 b, s, d, n, code, plan.lanes, plan.steps,
+                 b, s, d, n, STEPS, code, plan.lanes, plan.steps,
                  plan.stages, gran_dx, gran_bc, stream)
     if err != 0:
         raise RuntimeError(f"selective_scan kernel launch failed: "
@@ -253,24 +256,54 @@ selective_scan.launches = 0
 
 # ------------------------------------------------------------- backward
 
-BWD_THREADS = 256             # threads a block (kThreads in the source)
+# the backward's plan (set from the on-card sweep, PERF.md §6): lanes a
+# channel and warps a block (the build's BWD_LANES, BWD_WARPS); a chunk
+# is ``STEPS`` steps, the forward's saving interval, and its ring holds
+# two chunks (kStages in the source)
+BWD_LANES = 4
+BWD_WARPS = 8
+BWD_RING = 2
+BWD_MAX_STATES = 4          # states a lane: 2 x STEPS x 4 floats of registers
+# (lanes, warps) builds the sweep makes
+BWD_SWEEP = ((4, 4), (4, 8), (8, 4), (8, 8))
+
+
+def bwd_source(lanes: int, warps: int) -> _build.KernelSource:
+    """The backward built for ``lanes`` lanes a channel and ``warps``
+    warps a block (``BWD_SOURCE`` is built for the kept pair)."""
+    if (lanes, warps) == (BWD_LANES, BWD_WARPS):
+        return BWD_SOURCE
+    return dataclasses.replace(
+        BWD_SOURCE, name=f"selective_scan_bwd_l{lanes}w{warps}",
+        extra_flags=BWD_SOURCE.extra_flags + (f"-DBWD_LANES={lanes}",
+                                              f"-DBWD_WARPS={warps}"))
 
 
 class BwdPlan(NamedTuple):
     """How one backward launch lays (B, S, D, N) over the card.  Block
     (x, b) owns channels ``[x * channels, (x + 1) * channels)`` (cut at D)
-    of batch row b, thread t of it channel ``t // n`` and state ``t % n``
-    (``lanes`` = N lanes a channel); it walks the ``ceil(S / steps)``
-    chunks of ``steps`` steps in reverse, using ``smem`` bytes of dynamic
-    shared memory.  Its sums over its channels go into a workspace of
-    ``workspace_bytes`` that a second kernel adds up."""
+    of batch row b; thread t of it channel ``t // lanes`` and states
+    ``[(t % lanes) * N / lanes, (t % lanes + 1) * N / lanes)``.  It walks
+    the ``ceil(S / steps)`` chunks of ``steps`` steps last first, the next
+    one loading as it walks one, using ``smem`` bytes of dynamic shared
+    memory.
+    Its sums over its channels go into a workspace of ``workspace_bytes``
+    that a second kernel adds up."""
 
     lanes: int
-    channels: int
+    warps: int
     steps: int
     smem: int
     blocks: int
     workspace_bytes: int
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.warps
+
+    @property
+    def channels(self) -> int:
+        return self.threads // self.lanes
 
     def grid(self, b: int) -> Tuple[int, int]:
         """Blocks along channels and batch rows."""
@@ -287,49 +320,79 @@ class BwdPlan(NamedTuple):
         """Chunk k's steps."""
         return k * self.steps, min((k + 1) * self.steps, s)
 
-    def thread(self, t: int) -> Tuple[int, int]:
-        """Thread t's channel in its block and its state."""
-        return t // self.lanes, t % self.lanes
+    def thread(self, t: int, n: int) -> Tuple[int, Tuple[int, int]]:
+        """Thread t's channel in its block and its state range."""
+        per = n // self.lanes
+        j = t % self.lanes
+        return t // self.lanes, (j * per, (j + 1) * per)
 
 
-def bwd_smem_bytes(n: int, steps: int) -> int:
-    """Dynamic shared memory of one backward block: the chunk's states
-    (steps x channels x N), its dt, x, dy rows and the dx, d dt rows it
-    writes (steps x channels each), its Bm and Cm rows (steps x N
-    each), float32."""
-    c = BWD_THREADS // n
-    return 4 * steps * (c * n + 5 * c + 2 * n)
+def bwd_smem_bytes(n: int, lanes: int = BWD_LANES,
+                   warps: int = BWD_WARPS) -> int:
+    """Dynamic shared memory of one backward block: ``BWD_RING`` chunk
+    buffers, each the dt, x, dy rows of ``STEPS`` steps (a row padded by a
+    warp's channels), its Bm and Cm rows and the boundary states of the
+    block's channels; the warps' sums of d Cm and d Bm (warps x steps x
+    N each); the dx and d dt rows (steps x channels each); float32."""
+    cw = 32 // lanes
+    c = warps * cw
+    row = c + cw
+    stage = 3 * STEPS * row + 2 * STEPS * n + c * n
+    return 4 * (BWD_RING * stage + 2 * warps * STEPS * n + 2 * STEPS * c)
 
 
-def bwd_plan(b: int, s: int, d: int, n: int) -> BwdPlan:
+def bwd_workspace_bytes(b: int, s: int, d: int, n: int, channels: int) -> int:
+    """Two (B, S, blocks, N) rows of sums over a block's channels (d Bm,
+    d Cm), dA's (B, D, N) and dDskip's (B, D) batch rows, float32."""
+    blocks = -(-d // channels)
+    return 4 * (2 * b * s * blocks * n + b * d * n + b * d)
+
+
+def bwd_plan(b: int, s: int, d: int, n: int, *, lanes: int = BWD_LANES,
+             warps: int = BWD_WARPS) -> BwdPlan:
     """The backward's launch plan at (B, S, D, N), with chunks of
-    ``STEPS`` steps (the forward's steps a stage, whose boundary states
-    it starts from).  Raises on an N the kernel does not take."""
+    ``STEPS`` steps (the forward's saving interval, whose boundary states
+    it starts from).  Keywords force a knob (the on-card sweep; lanes and
+    warps other than the kept ones need the build ``bwd_source`` gives).
+    Raises on a plan the kernel cannot run."""
     if n not in STATE_DIMS:
         raise ValueError(f"selective_scan_bwd: N={n}, the kernel takes "
                          f"{STATE_DIMS}")
-    c = BWD_THREADS // n
-    blocks = -(-d // c)
-    ws = 4 * (2 * b * s * blocks * n + b * d * n + b * d)
-    return BwdPlan(n, c, STEPS, bwd_smem_bytes(n, STEPS), blocks, ws)
+    if (lanes not in (2, 4, 8) or n % lanes
+            or n // lanes > BWD_MAX_STATES):
+        raise ValueError(f"selective_scan_bwd: {lanes} lanes a channel "
+                         f"cannot split N={n} (lanes in (2, 4, 8), dividing "
+                         f"N into at most {BWD_MAX_STATES} states a lane)")
+    if warps not in (2, 4, 8):
+        raise ValueError(f"selective_scan_bwd: {warps} warps a block, the "
+                         f"kernel takes 2, 4 or 8")
+    smem = bwd_smem_bytes(n, lanes, warps)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"selective_scan_bwd: {smem} B of shared memory a "
+                         f"block, the card allows {SMEM_LIMIT}")
+    channels = 32 * warps // lanes
+    return BwdPlan(lanes, warps, STEPS, smem, -(-d // channels),
+                   bwd_workspace_bytes(b, s, d, n, channels))
 
 
 @functools.cache
-def _bwd_lib():
+def _bwd_lib(source: _build.KernelSource = BWD_SOURCE):
     """The backward's launcher and plan queries, bound once per process."""
-    lib = _build.load(BWD_SOURCE)
+    lib = _build.load(source)
     fn = lib.selective_scan_bwd_launch
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 16 + [i32] * 5 + [ptr]
+    fn.argtypes = [ptr] * 16 + [i32] * 8 + [ptr]
     fn.restype = i32
-    lib.selective_scan_bwd_smem_bytes.argtypes = [i32] * 2
+    lib.selective_scan_bwd_smem_bytes.argtypes = [i32]
     lib.selective_scan_bwd_smem_bytes.restype = i32
     lib.selective_scan_bwd_workspace_bytes.argtypes = [i32] * 4
     lib.selective_scan_bwd_workspace_bytes.restype = ctypes.c_longlong
-    lib.selective_scan_bwd_threads.restype = i32
+    for name in ("lanes", "warps", "steps"):
+        getattr(lib, f"selective_scan_bwd_{name}").restype = i32
     return (fn, lib.selective_scan_bwd_smem_bytes,
             lib.selective_scan_bwd_workspace_bytes,
-            lib.selective_scan_bwd_threads())
+            (lib.selective_scan_bwd_lanes(), lib.selective_scan_bwd_warps(),
+             lib.selective_scan_bwd_steps()))
 
 
 def _check_bwd(dt, bm, cm, x, a, d_skip, dy, dh_last, h_chunks) -> None:
@@ -386,13 +449,30 @@ def selective_scan_bwd(dt: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
                          "forward's h_chunks (selective_scan(..., "
                          "states=True))")
     b, s, d = x.shape
+    return _bwd_run(dt, bm, cm, x, a, d_skip, dy, dh_last, h_chunks,
+                    bwd_plan(b, s, d, a.shape[-1]))
+
+
+def bwd_run_plan(dt, bm, cm, x, a, d_skip, dy, dh_last, h_chunks,
+                 plan: BwdPlan) -> Tuple[torch.Tensor, ...]:
+    """Launch the backward on CUDA operands with the given plan (the
+    on-card sweep forces knobs), from the build for its lanes and warps."""
+    _check_bwd(dt, bm, cm, x, a, d_skip, dy, dh_last, h_chunks)
+    return _bwd_run(dt, bm, cm, x, a, d_skip, dy, dh_last, h_chunks, plan,
+                    bwd_source(plan.lanes, plan.warps))
+
+
+def _bwd_run(dt, bm, cm, x, a, d_skip, dy, dh_last, h_chunks,
+             plan: BwdPlan, source: _build.KernelSource = BWD_SOURCE):
+    b, s, d = x.shape
     n = a.shape[-1]
-    plan = bwd_plan(b, s, d, n)
-    launch, smem_of, ws_of, threads = _bwd_lib()
-    if (threads != BWD_THREADS or smem_of(n, STEPS) != plan.smem
+    launch, smem_of, ws_of, knobs = _bwd_lib(source)
+    if (knobs != (plan.lanes, plan.warps, plan.steps)
+            or smem_of(n) != plan.smem
             or ws_of(b, s, d, n) != plan.workspace_bytes):
         raise RuntimeError(f"selective_scan_bwd: {plan} disagrees with the "
-                           f"build {BWD_SOURCE.name}")
+                           f"build {source.name} (lanes, warps, steps "
+                           f"{knobs})")
     dt, bm, cm, x, a, d_skip, dy, h_chunks = (
         t.contiguous() for t in (dt, bm, cm, x, a, d_skip, dy, h_chunks))
     if dh_last is not None:
@@ -406,7 +486,9 @@ def selective_scan_bwd(dt: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,
                  None if dh_last is None else dh_last.data_ptr(),
                  h_chunks.data_ptr(), d_dt.data_ptr(), d_bm.data_ptr(),
                  d_cm.data_ptr(), d_x.data_ptr(), d_a.data_ptr(),
-                 d_d.data_ptr(), ws.data_ptr(), b, s, d, n, STEPS,
+                 d_d.data_ptr(), ws.data_ptr(), b, s, d, n, plan.steps,
+                 granule(d * 4, dt, x, dy, d_dt, d_x),
+                 granule(n * 4, bm, cm), granule(n * 4, h_chunks),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"selective_scan_bwd kernel launch failed: "

@@ -15,7 +15,9 @@ from typing import Optional, Tuple
 
 import torch
 
-STEPS = 64      # steps a chunk of saved states (the forward's steps a stage)
+# steps a chunk of saved states: the forward saves the state each chunk
+# starts from, the backward rebuilds a chunk's states in registers
+STEPS = 16
 
 
 def selective_scan_ref(dt: torch.Tensor, bm: torch.Tensor, cm: torch.Tensor,

@@ -141,16 +141,17 @@ def test_function_takes_its_kernels_from_ops(monkeypatch):
     y, _ = SelectiveScan.apply(*leaves)
     y.sum().backward()
     assert seen == [("fwd", {"states": True}),
-                    ("bwd", (1, 3, 8, 4))]
+                    ("bwd", (1, -(-130 // ops.STEPS), 8, 4))]
     assert all(t.grad is not None for t in leaves)
 
 
-def test_forward_boundary_states():
+@pytest.mark.parametrize("b,s,d,n", [(2, 150, 8, 8), (1, 64, 16, 4)])
+def test_forward_boundary_states(b, s, d, n):
     """Given ``states`` the forward also returns the state each run of
-    ``ops.STEPS`` steps starts from (zeros first); y and the last state
-    are the same bits as without it."""
-    b, s, d, n = 2, 150, 8, 8
+    ``ops.STEPS`` (16) steps starts from (zeros first), the backward's
+    chunks; y and the last state are the same bits as without it."""
     chunk = ops.STEPS
+    assert chunk == 16
     arrays, _ = _inputs(b, s, d, n, seed=2, dtype=np.float32)
     operands = _torch(arrays[:6])
     y, h = selective_scan(*operands)
@@ -174,21 +175,24 @@ BWD_PLAN_SHAPES = [(4, 512, 8192, 16), (1, 512, 8192, 16), (1, 1, 8192, 16),
 
 @pytest.mark.parametrize("b,s,d,n", BWD_PLAN_SHAPES)
 def test_bwd_plan_covers_every_element_once(b, s, d, n):
-    """Every (b, chunk, d, n) is owned by exactly one (block, thread),
-    the chunks of ``ops.STEPS`` steps partition S, and a block's shared
-    memory fits the card's 227 KB."""
+    """Every (b, chunk, d, n) is owned by exactly one (block, thread): a
+    block ``channels`` channels of one batch row, a thread one channel
+    and ``N / lanes`` of its states; the chunks of ``ops.STEPS`` steps
+    partition S; a block's shared memory fits the card's 227 KB."""
     plan = ops.bwd_plan(b, s, d, n)
     gx, gb = plan.grid(b)
-    assert gb == b and plan.lanes == n
-    assert plan.channels * plan.lanes == ops.BWD_THREADS
+    assert gb == b and gx == -(-d // plan.channels)
+    assert (plan.lanes, plan.warps) == (ops.BWD_LANES, ops.BWD_WARPS)
+    assert plan.channels * plan.lanes == plan.threads == 32 * plan.warps
+    assert n % plan.lanes == 0 and n // plan.lanes <= ops.BWD_MAX_STATES
     cells = np.zeros((d, n), np.int64)
     for x in range(gx):
         c0, c1 = plan.channel_range(x, d)
         assert c0 < c1
-        for t in range(ops.BWD_THREADS):
-            c, m = plan.thread(t)
+        for t in range(plan.threads):
+            c, (m0, m1) = plan.thread(t, n)
             if c0 + c < c1:
-                cells[c0 + c, m] += 1
+                cells[c0 + c, m0:m1] += 1
     assert (cells == 1).all()
     steps = np.zeros(s, np.int64)
     for k in range(plan.chunks(s)):
@@ -196,9 +200,9 @@ def test_bwd_plan_covers_every_element_once(b, s, d, n):
         assert k1 - k0 <= plan.steps == ops.STEPS
         steps[k0:k1] += 1
     assert (steps == 1).all()
-    assert plan.smem == ops.bwd_smem_bytes(n, ops.STEPS) <= ops.SMEM_LIMIT
-    # the workspace: two (B, S, blocks, N) rows of sums, dA's and dD's
-    # batch rows
+    assert plan.smem == ops.bwd_smem_bytes(n) <= ops.SMEM_LIMIT
+    # the workspace: two (B, S, blocks, N) rows of sums over a block's
+    # channels, dA's (B, D, N) and dDskip's (B, D) batch rows
     assert plan.workspace_bytes == 4 * (2 * b * s * gx * n + b * d * n
                                         + b * d)
 
@@ -207,6 +211,39 @@ def test_bwd_plan_rejects_what_the_kernel_cannot_run():
     for n in (2, 32):
         with pytest.raises(ValueError, match=f"N={n}"):
             ops.bwd_plan(1, 16, 8, n)
+
+
+@pytest.mark.parametrize("n,knobs,match", [
+    (4, dict(lanes=8), "8 lanes a channel cannot split N=4"),
+    (16, dict(lanes=3), "3 lanes a channel cannot split N=16"),
+    (8, dict(lanes=16), "16 lanes a channel cannot split N=8"),
+    (16, dict(lanes=2), "2 lanes a channel cannot split N=16"),
+    (16, dict(warps=3), "3 warps a block"),
+    (16, dict(warps=1), "1 warps a block"),
+    (16, dict(warps=16), "16 warps a block")])
+def test_bwd_plan_rejects_lanes_and_knobs(n, knobs, match):
+    """Lanes must divide N into at most ``BWD_MAX_STATES`` states a lane
+    (2 x 16 steps x that many floats stay in registers); warps as the
+    kernel takes them (2, 4 or 8)."""
+    with pytest.raises(ValueError, match=match):
+        ops.bwd_plan(1, 16, 64, n, **knobs)
+
+
+@pytest.mark.parametrize("lanes,warps", ops.BWD_SWEEP)
+def test_bwd_sweep_plans(lanes, warps):
+    """Every build the sweep makes has a plan at falcon-mamba-7b's train
+    shape, within the card's shared memory, and a build of its own (the
+    kept pair is ``BWD_SOURCE``)."""
+    plan = ops.bwd_plan(4, 512, 8192, 16, lanes=lanes, warps=warps)
+    assert plan.channels == 32 * warps // lanes
+    assert plan.smem <= ops.SMEM_LIMIT
+    source = ops.bwd_source(lanes, warps)
+    if (lanes, warps) == (ops.BWD_LANES, ops.BWD_WARPS):
+        assert source is ops.BWD_SOURCE
+    else:
+        assert f"-DBWD_LANES={lanes}" in source.extra_flags
+        assert f"-DBWD_WARPS={warps}" in source.extra_flags
+        assert source.path == ops.BWD_SOURCE.path
 
 
 def _bwd_operands(dtype=torch.float32, device="cpu"):
