@@ -6,7 +6,8 @@ Each architecture has one module ``repro_torch/configs/<id>.py`` exporting
 module docstring).  ``get_config(name)`` returns it; ``reduced(cfg)``
 returns the small variant of the same family that the CPU tests run;
 ``param_count`` / ``active_param_count`` count a config's parameters
-analytically.
+analytically; ``RunShape`` / ``SHAPES`` are the dry run's four input
+shapes (``launch/dryrun.py``).
 ``tests/test_torch_contract.py`` pins every config, field by field, to
 the reference's.
 """
@@ -109,6 +110,22 @@ class ArchConfig:
 
     def layer_uses_moe(self, idx: int) -> bool:
         return self.moe is not None and (idx % self.moe_every == self.moe_offset)
+
+
+@dataclass(frozen=True)
+class RunShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": RunShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": RunShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": RunShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": RunShape("long_500k", 524288, 1, "decode"),
+}
 
 
 ARCH_IDS = [

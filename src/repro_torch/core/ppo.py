@@ -239,3 +239,12 @@ class PPOTrainer:
         lhs = (1 - 1 / s) / eps
         rhs = (lr_ + self.beta_weight * lp_) / (self.alpha_weight * self.k0)
         return lhs > rhs
+
+    def act(self, obs: np.ndarray) -> np.ndarray:
+        """The policy's mean action for ``obs`` (float32, on the trainer's
+        device), returned as a numpy array."""
+        with torch.no_grad():
+            a = pol.mean_action(self.net, torch.as_tensor(
+                obs, dtype=torch.float32, device=self.device),
+                self.n_regions)
+        return a.cpu().numpy()

@@ -97,6 +97,13 @@ def mamba_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     return out, (h_last, conv_state)
 
 
+def mamba_state_shapes(cfg: ArchConfig, batch: int) -> Dict:
+    """Shapes of one Mamba layer's decode state: the SSM state ``h`` and
+    the conv window of the last ``d_conv - 1`` raw inputs."""
+    d_in, n, d_conv, _ = _dims(cfg)
+    return {"h": (batch, d_in, n), "conv": (batch, d_conv - 1, d_in)}
+
+
 def mamba_decode_step(p: Dict, x: torch.Tensor, h: torch.Tensor,
                       conv: torch.Tensor, cfg: ArchConfig
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

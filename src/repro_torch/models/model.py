@@ -36,7 +36,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models import mamba as M
 from repro_torch.models.layers import norm, sinusoidal_rows
 from repro_torch.models.params import (ParamDesc, ParamTree, check_tree,
-                                       init_params, stack_tree)
+                                       init_params, param_shapes, stack_tree)
 
 Tree = Any
 
@@ -65,6 +65,44 @@ def param_descs(cfg: ArchConfig) -> Tree:
             "layers": stack_tree(layer, cfg.encoder.num_layers),
             "final_norm": B.norm_descs(cfg)}
     return descs
+
+
+def model_shapes(cfg: ArchConfig, dtype: torch.dtype = torch.bfloat16
+                 ) -> Tree:
+    """The parameter tree of :func:`param_descs` as ``meta`` tensors of
+    ``dtype`` (the reference's ``Model.shapes``), allocating nothing."""
+    return param_shapes(param_descs(cfg), dtype)
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, seq_len: int, *,
+                 dtype: torch.dtype = torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """The decode cache for ``batch`` sequences of ``seq_len`` positions as
+    ``meta`` tensors, in the reference's layout and keys: ``pos`` (B,)
+    int32; ``k``/``v`` (G, na, B, C, KH, hd) with C = ``kv_cache_len``;
+    the SSM state ``h`` (G, nm, B, d_in, N) in float32 and the conv
+    window ``conv`` (G, nm, B, d_conv - 1, d_in); an encoder-decoder's
+    ``ck``/``cv`` (G, na, B, src_len, KH, hd).  All but ``pos`` and ``h``
+    in ``dtype``."""
+    g = cfg.num_layers // len(cfg.layer_period)
+    na = sum(k == "attn" for k in cfg.layer_period)
+    nm = len(cfg.layer_period) - na
+
+    def meta(shape, dt=dtype):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    shapes = {"pos": meta((batch,), torch.int32)}
+    if na:
+        kv = (g, na, batch, A.kv_cache_len(cfg, seq_len),
+              max(cfg.num_kv_heads, 1), cfg.hd)
+        shapes["k"], shapes["v"] = meta(kv), meta(kv)
+    if nm:
+        state = M.mamba_state_shapes(cfg, batch)
+        shapes["h"] = meta((g, nm) + state["h"], torch.float32)
+        shapes["conv"] = meta((g, nm) + state["conv"])
+    if cfg.encoder is not None and na:
+        cross = kv[:3] + (cfg.encoder.src_len,) + kv[4:]
+        shapes["ck"], shapes["cv"] = meta(cross), meta(cross)
+    return shapes
 
 
 # the reference's decode-step table has this many rows and is indexed by
@@ -248,33 +286,24 @@ class Model(nn.Module):
     def cache_len(self, seq_len: int) -> int:
         return A.kv_cache_len(self.cfg, seq_len)
 
+    def shapes(self, dtype: torch.dtype = torch.bfloat16) -> Tree:
+        return model_shapes(self.cfg, dtype)
+
+    def cache_shapes(self, batch: int, seq_len: int, *,
+                     dtype: torch.dtype = torch.bfloat16) -> Dict:
+        return cache_shapes(self.cfg, batch, seq_len, dtype=dtype)
+
     def init_cache(self, batch: int, seq_len: int, *,
                    dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
-        """An empty decode cache: ``pos`` -1, every state 0.  K/V (and an
-        encoder-decoder's cross-attention ``ck``/``cv``, (G, na, B,
-        src_len, KH, hd)) and the conv window in ``dtype`` (default: the
-        parameters' type; the reference defaults to bfloat16), the SSM
-        state in float32."""
-        cfg, dev = self.cfg, self.device
+        """An empty decode cache shaped as :func:`cache_shapes`: ``pos``
+        -1, every state 0.  K/V, ``ck``/``cv`` and the conv window in
+        ``dtype`` (default: the parameters' type; the reference defaults
+        to bfloat16), the SSM state in float32."""
         dtype = dtype or self.params.tree()["embed"].dtype
-        c, g = self.cache_len(seq_len), self.n_groups
-        na, nm = len(self.attn_pos), len(self.mamba_pos)
-        cache = {"pos": torch.full((batch,), -1, dtype=torch.int32,
-                                   device=dev)}
-        if na:
-            shape = (g, na, batch, c, max(cfg.num_kv_heads, 1), cfg.hd)
-            cache["k"] = torch.zeros(shape, dtype=dtype, device=dev)
-            cache["v"] = torch.zeros(shape, dtype=dtype, device=dev)
-            if self.is_encdec:
-                shape = shape[:3] + (cfg.encoder.src_len,) + shape[4:]
-                cache["ck"] = torch.zeros(shape, dtype=dtype, device=dev)
-                cache["cv"] = torch.zeros(shape, dtype=dtype, device=dev)
-        if nm:
-            d_in, n, d_conv, _ = M._dims(cfg)
-            cache["h"] = torch.zeros((g, nm, batch, d_in, n),
-                                     dtype=torch.float32, device=dev)
-            cache["conv"] = torch.zeros((g, nm, batch, d_conv - 1, d_in),
-                                        dtype=dtype, device=dev)
+        cache = {k: torch.zeros(m.shape, dtype=m.dtype, device=self.device)
+                 for k, m in cache_shapes(self.cfg, batch, seq_len,
+                                          dtype=dtype).items()}
+        cache["pos"].fill_(-1)
         return cache
 
     def _build_cache(self, ys: Dict[str, torch.Tensor], S: int,

@@ -4,7 +4,9 @@ initialisers.
 Every parameter is declared once as a :class:`ParamDesc` with the name,
 shape and initialiser kind the reference gives it
 (``repro/models/params.py``), so a weight tree of the reference maps leaf
-to leaf (``interop.model_params_from_arrays``).  Initialisers draw from an
+to leaf (``interop.model_params_from_arrays``), and ``param_shapes``
+gives the tree's shapes on the ``meta`` device without allocating it.
+Initialisers draw from an
 explicit ``torch.Generator``, on that generator's device; their bits
 differ from ``jax.random``'s, their distributions do not.
 """
@@ -71,6 +73,15 @@ def _leaves(tree: Tree):
     else:
         for v in tree.values():
             yield from _leaves(v)
+
+
+def param_shapes(tree: Tree, dtype: torch.dtype = torch.bfloat16) -> Tree:
+    """The descriptor tree as tensors on the ``meta`` device: each leaf has
+    its descriptor's shape and ``dtype`` and no storage (the counterpart
+    of the reference's ``jax.ShapeDtypeStruct`` tree)."""
+    if isinstance(tree, ParamDesc):
+        return torch.empty(tree.shape, dtype=dtype, device="meta")
+    return {k: param_shapes(v, dtype) for k, v in tree.items()}
 
 
 def count_params(tree: Tree) -> int:

@@ -27,7 +27,10 @@ GPU_TYPES: Dict[str, tuple] = {
 # Fig 3.a stage costs on a V100, seconds
 SWITCH_STAGES_S = {"unload": 3.5, "cleanup": 2.1, "load": 6.8,
                    "init": 14.2, "reconfig": 3.4}
+MIGRATION_STAGES_S = {"serialize": 15.2, "deserialize": 4.8,
+                      "mem_load": 5.6, "warmup": 5.1}
 MODEL_SWITCH_S = sum(SWITCH_STAGES_S.values())      # ~30.0
+MIGRATION_S = sum(MIGRATION_STAGES_S.values())      # ~30.7
 COLD_START_S = 90.0          # cold -> ready (paper: 1-3 min)
 SWITCH_POWER_FRAC = 0.95     # peak draw fraction during transitions (Fig 3.c)
 

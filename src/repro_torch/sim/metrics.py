@@ -94,6 +94,14 @@ class MetricsAggregator:
             t = int(t)
             self.drops_by_slot[t] = self.drops_by_slot.get(t, 0) + n
 
+    def drops_series(self, n_slots: int) -> np.ndarray:
+        """(n_slots,) dense per-slot drop counts (zeros where none)."""
+        out = np.zeros(n_slots, np.int64)
+        for t, n in self.drops_by_slot.items():
+            if 0 <= t < n_slots:
+                out[t] = n
+        return out
+
     def record_slot(self, t: int, *, utils: np.ndarray, power_cost: float,
                     switch_cost: float, overhead_s: float, n_switches: int,
                     queue_tasks: float) -> None:

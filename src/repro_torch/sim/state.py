@@ -89,6 +89,10 @@ class ClusterState:
         return slice(int(self.region_ptr[ridx]),
                      int(self.region_ptr[ridx + 1]))
 
+    def gidx(self, ridx: int, sidx: int) -> int:
+        """Global server index of server ``sidx`` within region ``ridx``."""
+        return int(self.region_ptr[ridx]) + int(sidx)
+
     @property
     def region_of(self) -> np.ndarray:
         """(S,) region index of each server."""
@@ -139,6 +143,14 @@ class ClusterState:
 
     # -------------------------------------------------------- model caches
 
+    def switch_cost_vec(self, mid: int) -> np.ndarray:
+        """(S,) seconds to switch every server to model ``mid``
+        (vectorized ``Server.switch_cost_s``)."""
+        cost = self.switch_scale * MODEL_SWITCH_S
+        warm_hit = (self.warm_models == mid).any(axis=1)
+        cost = np.where(warm_hit, self.switch_scale * _WARM_HIT_S, cost)
+        return np.where(self.current_model == mid, 0.0, cost)
+
     def switch_cost_rows(self, g: np.ndarray, mids: np.ndarray) -> np.ndarray:
         """(K,) seconds to switch server ``g[k]`` to model ``mids[k]``."""
         scale = self.switch_scale[g]
@@ -146,6 +158,19 @@ class ClusterState:
         cost = np.where(warm_hit, scale * _WARM_HIT_S,
                         scale * MODEL_SWITCH_S)
         return np.where(self.current_model[g] == mids, 0.0, cost)
+
+    def switch_cost_matrix(self, mids: np.ndarray,
+                           sl: Optional[slice] = None) -> np.ndarray:
+        """(N, S) seconds to switch server ``j`` to task ``i``'s model —
+        the all-pairs form of :meth:`switch_cost` (optionally restricted
+        to a region slice)."""
+        scale = (self.switch_scale if sl is None
+                 else self.switch_scale[sl])[None, :]
+        cur = self.current_model if sl is None else self.current_model[sl]
+        warm_hit = self.warm_hit_matrix(mids, sl)
+        cost = np.where(warm_hit, scale * _WARM_HIT_S,
+                        scale * MODEL_SWITCH_S)
+        return np.where(cur[None, :] == mids[:, None], 0.0, cost)
 
     def switch_cost(self, g: int, mid: int) -> float:
         if self.current_model[g] == mid:

@@ -61,6 +61,10 @@ class TaskBatch:
     def __len__(self) -> int:
         return int(self.ids.shape[0])
 
+    @property
+    def embed_dim(self) -> int:
+        return int(self.embeds.shape[1])
+
     def origin_counts(self, n_regions: int) -> np.ndarray:
         """(R,) arrival counts per region."""
         return np.bincount(self.origin, minlength=n_regions)[:n_regions]

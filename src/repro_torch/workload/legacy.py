@@ -62,6 +62,17 @@ class Workload:
     def n_regions(self) -> int:
         return self.traffic.shape[1]
 
+    def arrivals_matrix(self) -> np.ndarray:
+        """(T, R) realized arrival counts — one bincount per slot."""
+        t, r = self.traffic.shape
+        out = np.zeros((t, r))
+        for s, ts in enumerate(self.tasks):
+            if ts:
+                out[s] = np.bincount(
+                    np.fromiter((task.origin for task in ts), np.int64,
+                                count=len(ts)), minlength=r)[:r]
+        return out
+
 
 def make_workload(n_slots: int, n_regions: int, seed: int = 0,
                   **traffic_kw) -> Workload:

@@ -2,10 +2,12 @@
 
 ``StreamingWorkload`` turns a (T, R) expected-arrival matrix into one
 ``TaskBatch`` per slot with vectorized draws from a per-``(seed, slot)``
-RNG, the reference's exact draw order.  ``as_source`` adapts a legacy
-object ``Workload`` to the engine's demand-source contract
-(``n_slots`` / ``n_regions`` / ``traffic`` / ``slot_batch(t)``);
-``to_legacy_workload`` goes the other way.
+RNG, the reference's exact draw order; ``arrivals_matrix()`` replays just
+the Poisson counts without sampling task attributes.  ``as_source``
+adapts a legacy object ``Workload`` to the engine's demand-source
+contract (``n_slots`` / ``n_regions`` / ``traffic`` / ``slot_batch(t)`` /
+``slot_tasks(t)`` / ``arrivals_matrix()``); ``to_legacy_workload`` goes
+the other way.
 """
 from __future__ import annotations
 
@@ -52,9 +54,17 @@ class StreamingWorkload:
     def n_regions(self) -> int:
         return int(self.traffic.shape[1])
 
+    def _slot_rng(self, t: int) -> np.random.Generator:
+        return np.random.default_rng([int(self.seed) & 0x7FFFFFFF, int(t)])
+
+    def slot_counts(self, t: int) -> np.ndarray:
+        """(R,) realized Poisson arrivals of slot ``t`` (same draw the
+        full ``slot_batch`` makes first)."""
+        return self._slot_rng(t).poisson(self.traffic[t])
+
     def slot_batch(self, t: int) -> TaskBatch:
         """One slot's tasks as a ``TaskBatch`` — all draws vectorized."""
-        rng = np.random.default_rng([int(self.seed) & 0x7FFFFFFF, int(t)])
+        rng = self._slot_rng(t)
         counts = rng.poisson(self.traffic[t])
         n = int(counts.sum())
         if n == 0:
@@ -73,6 +83,16 @@ class StreamingWorkload:
             work_s=work, mem_gb=MODEL_MEM_GB[midx].copy(),
             deadline_slot=deadline.astype(np.int64),
             arrival_slot=np.full(n, t, np.int64), embeds=embeds)
+
+    def slot_tasks(self, t: int) -> list:
+        """Legacy ``Task`` objects for object-path schedulers."""
+        return self.slot_batch(t).to_tasks()
+
+    def arrivals_matrix(self) -> np.ndarray:
+        """(T, R) realized arrival counts (exactly what streaming the
+        batches would produce, without sampling task attributes)."""
+        return np.stack([self.slot_counts(t)
+                         for t in range(self.n_slots)]).astype(np.float64)
 
     def materialize(self) -> Workload:
         """Legacy object ``Workload`` with identical per-slot content."""
@@ -100,8 +120,14 @@ class LegacySource:
     def n_regions(self) -> int:
         return self.workload.traffic.shape[1]
 
+    def slot_tasks(self, t: int) -> list:
+        return list(self.workload.tasks[t])
+
     def slot_batch(self, t: int) -> TaskBatch:
         return TaskBatch.from_tasks(self.workload.tasks[t])
+
+    def arrivals_matrix(self) -> np.ndarray:
+        return self.workload.arrivals_matrix()
 
 
 def as_source(workload):

@@ -63,6 +63,7 @@ from repro_torch.sim.reference import make_reference_torta
 from repro_torch.sim.state import make_cluster_state
 from repro_torch.sim.topology import Topology
 from repro_torch import train_lm
+from repro_torch.launch import dryrun
 from repro_torch.workload import StreamingWorkload
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -85,6 +86,14 @@ def test_port_files_include_the_train_slice():
     training script, so the import checks cover them."""
     for rel in ("data/__init__.py", "data/tokens.py", "train_lm.py",
                 "kernels/flash_prefill/autograd.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
+
+
+def test_port_files_include_the_launch_tier():
+    """The walk over the port's files reaches the launch tier, so the
+    import checks cover it."""
+    for rel in ("launch/__init__.py", "launch/inputs.py",
+                "launch/roofline.py", "launch/dryrun.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
 
 
@@ -197,6 +206,10 @@ ENTRY_POINTS = {
     "model_params_from_arrays": lambda: model_params_from_arrays(
         configs.reduced(configs.get_config("tinyllama-1.1b")), {}),
     "train_lm": lambda: train_lm.run(train_lm.parse_args([])),
+    "dryrun": lambda: dryrun.main(["--arch", "tinyllama-1.1b", "--shape",
+                                   "decode_32k"]),
+    "dryrun.run_pair": lambda: dryrun.run_pair("tinyllama-1.1b",
+                                               "decode_32k"),
 }
 
 
@@ -215,6 +228,9 @@ CONSTANTS = [
     (cluster, ref_cluster, "GPU_TYPES"), (cluster, ref_cluster, "MODEL_SWITCH_S"),
     (cluster, ref_cluster, "MODEL_CATALOG"), (cluster, ref_cluster, "COLD_START_S"),
     (cluster, ref_cluster, "SWITCH_POWER_FRAC"),
+    (cluster, ref_cluster, "MIGRATION_STAGES_S"),
+    (cluster, ref_cluster, "MIGRATION_S"),
+    (configs, ref_configs, "RunShape"), (configs, ref_configs, "SHAPES"),
     (state, ref_state, "_WARM_HIT_S"), (state, ref_state, "MODEL_NAMES"),
     (state, ref_state, "WARM_SLOTS"), (state, ref_state, "KINDS"),
     (predictor, ref_env, "K_HIST"), (batch, ref_batch, "EMBED_DIM"),
@@ -234,7 +250,20 @@ def test_copied_constant_equals_reference(port, ref, name):
         np.testing.assert_array_equal(got, want)
         assert got.dtype == want.dtype
     else:
-        assert got == want
+        assert _fields(got) == _fields(want)
+
+
+def _fields(x):
+    """A dataclass (class or instance), or a dict of them, as its fields,
+    so that the copy in each package compares equal; anything else as
+    is."""
+    if isinstance(x, dict):
+        return {k: _fields(v) for k, v in x.items()}
+    if isinstance(x, type) and dataclasses.is_dataclass(x):
+        return [(f.name, f.type, f.default) for f in dataclasses.fields(x)]
+    if dataclasses.is_dataclass(x):
+        return (type(x).__name__, dataclasses.astuple(x))
+    return x
 
 
 OBS_CONSTANTS = {
