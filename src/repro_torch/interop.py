@@ -16,7 +16,8 @@ from repro_torch.core.micro_torch import DeviceRings
 from repro_torch.core.policy import Mlp, PolicyNet
 from repro_torch.core.predictor import Predictor
 from repro_torch.models.model import param_descs
-from repro_torch.models.params import ParamDesc, check_tree
+from repro_torch.models.params import ParamDesc, check_tree, local_descs
+from repro_torch.sharding.place import shard_tree
 from repro_torch.sim.state import ClusterState
 
 _DTYPES = {"region_ptr": np.int64, "power_price": np.float64,
@@ -72,15 +73,24 @@ def locality_state_from_arrays(mids: np.ndarray, slots: np.ndarray,
         count=np.array(count, dtype=np.int32))
 
 
-def model_params_from_arrays(cfg, tree, *, device="cuda") -> dict:
+def model_params_from_arrays(cfg, tree, *, device="cuda", rules=None,
+                             coord=None) -> dict:
     """The port ``Model``'s parameters from a weight tree given as nested
     dicts of numpy arrays, named and shaped as the reference's
     ``Model.init`` pytree (groups stacked on a leading dim; an MoE
     position's router and (G, E, D, F) expert tensors included): every
     leaf copied to ``device`` as float32.  Raises when a key or a shape
-    differs from ``models.model.param_descs(cfg)``."""
+    differs from ``models.model.param_descs(cfg)``.  With ``rules`` on a
+    mesh, only the shards of the rank at ``coord`` (default: the bound
+    mesh's own) are copied, cut by ``param_descs(cfg, rules)``."""
     device = resolve_device(device)
-    check_tree(param_descs(cfg), tree)
+    descs = param_descs(cfg, rules)
+    check_tree(descs, tree)
+    mesh = None if rules is None else rules.mesh
+    if mesh is not None:
+        tree = shard_tree(tree, descs, mesh,
+                          mesh.coord if coord is None else coord)
+        check_tree(local_descs(descs, mesh), tree)
 
     def convert(t):
         if isinstance(t, dict):

@@ -4,8 +4,8 @@ counterparts of ``repro/launch/inputs.py``.  Nothing is allocated: a
 ``meta`` tensor has a shape and a dtype and no storage.
 
 The reference returns a pair (shape structs, ``PartitionSpec`` trees);
-this module returns the first half, with the same keys.  The partition
-specs come with the port's sharding tier, which is not ported yet.
+here ``input_specs`` / ``cache_specs`` give the first half and
+``input_pspecs`` / ``cache_pspecs`` the second, with the same keys.
 
 Modality frontends are stubbed, as in the reference: whisper receives
 precomputed conv/mel frame embeddings, paligemma precomputed SigLIP patch
@@ -13,12 +13,15 @@ embeddings, both as correctly shaped inputs of ``dtype``.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs import ArchConfig, RunShape
+from repro_torch.models import model as model_mod
 from repro_torch.models.model import cache_shapes
+from repro_torch.sharding.place import batch_sharded
+from repro_torch.sharding.specs import AxisRules, P, batch_axes
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -56,3 +59,28 @@ def cache_specs(cfg: ArchConfig, shape: RunShape, *,
                 ) -> Dict[str, torch.Tensor]:
     """The decode cache of ``shape``'s batch and sequence length."""
     return cache_shapes(cfg, shape.global_batch, shape.seq_len, dtype=dtype)
+
+
+def _batch_spec(rules: AxisRules, batch: int) -> Optional[Any]:
+    """The batch dim's spec: the data axes where the batch divides them,
+    else replicated (the reference's ``_batch_spec``)."""
+    return batch_axes(rules) if batch_sharded(rules, batch) else None
+
+
+def input_pspecs(cfg: ArchConfig, shape: RunShape,
+                 rules: AxisRules) -> Dict[str, P]:
+    """The partition specs of :func:`input_specs`' inputs."""
+    bs = _batch_spec(rules, shape.global_batch)
+    specs = {k: P(bs, None, None) for k in input_specs(cfg, shape)
+             if k in ("patches", "frames")}
+    specs["tokens"] = P(bs, None)
+    if shape.mode == "train":
+        specs["labels"] = P(bs, None)
+    return specs
+
+
+def cache_pspecs(cfg: ArchConfig, shape: RunShape,
+                 rules: AxisRules) -> Dict[str, P]:
+    """The partition specs of :func:`cache_specs`' cache."""
+    return model_mod.cache_pspecs(cfg, rules, shape.global_batch,
+                                  shape.seq_len)

@@ -15,8 +15,12 @@ has a TPU's.  ``mfu`` divides a step's model FLOPs by its measured time
 at a precision's peak.
 
 The reference reads the collective bytes from XLA's HLO
-(``launch/hlo_analysis.py``, which has no counterpart); the port has no
-sharded step yet, so ``build`` counts none.
+(``launch/hlo_analysis.py``, which has no counterpart); here ``build``
+takes them from the caller: the dry run counts a sharded step's
+collectives analytically (``sharding.collectives.step_collectives``,
+held equal to what a real run records) and turns them into link bytes
+at the reference's ring costs.  ``LINK_BW`` is NVLink 4's rate on the
+H100 SXM datasheet, not a measurement.
 """
 from __future__ import annotations
 
@@ -37,7 +41,9 @@ PEAK_FLOPS = {
     "float64": 67e12,
 }
 HBM_BW = 3.35e12          # bytes/s, HBM3
-LINK_BW = 450e9           # bytes/s each way, NVLink 4 (900 GB/s both ways)
+# NVLink 4, NVIDIA's H100 SXM datasheet: 900 GB/s a GPU, both directions
+# together; a ring sends one way, so 450 GB/s of it
+LINK_BW = 450e9
 
 
 # ---------------------------------------------------------------------------
@@ -181,16 +187,18 @@ def model_flops(cfg: ArchConfig, shape: RunShape) -> float:
 
 def build(arch: str, shape: RunShape, mesh_name: str, chips: int,
           cfg: ArchConfig, *, model_par: int = 1, fsdp: bool = False,
-          precision: str = "bfloat16") -> Roofline:
+          precision: str = "bfloat16",
+          collective_bytes: float = 0.0) -> Roofline:
     """The roofline of one step of ``shape`` on ``chips`` cards
-    (``model_par`` of them tensor-parallel), at ``precision``'s peak.  No
-    collective bytes are counted yet (the port has no sharded step)."""
+    (``model_par`` of them tensor-parallel), at ``precision``'s peak;
+    ``collective_bytes`` is what each card sends over its links in the
+    step (0: no collective term)."""
     ac = analytic_costs(cfg, shape, chips, model_par, fsdp=fsdp)
     return Roofline(
         arch=arch, shape=shape.name, mesh=mesh_name, chips=chips,
         flops_per_device=float(ac["flops_per_device"]),
         bytes_per_device=float(ac["bytes_per_device"]),
-        collective_bytes_per_device=0.0,
+        collective_bytes_per_device=float(collective_bytes),
         model_flops=model_flops(cfg, shape),
     ).finalize(precision)
 

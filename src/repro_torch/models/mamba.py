@@ -8,6 +8,14 @@ takes the kernel's autograd path, whose backward is the
 recurrent state ``(B, d_inner, d_state)`` plus the last ``d_conv - 1`` raw
 inputs of the depthwise conv, and is a one-token recurrence in plain
 torch, as in the reference.
+
+On a mesh the inner dim (``d_inner``) is split over ``model``, heads-free
+so the split is exact: ``in_proj`` (both halves, ``[x | z]``, each split
+on its own), the conv, ``dt_proj`` and the scan's per-channel operands
+are the rank's channels, and the scan kernel and the decode recurrence
+run on them; ``x_proj`` and ``out_proj`` are row-parallel, their partial
+sums all-reduced (``x_proj``'s ``dt_rank + 2N`` columns before
+``dt_proj``).
 """
 from __future__ import annotations
 
@@ -20,6 +28,8 @@ from repro_torch.configs import ArchConfig, SSMConfig
 from repro_torch.kernels.selective_scan import autograd as scan_autograd
 from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.models.params import ParamDesc
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.specs import DEFAULT_RULES, AxisRules, P
 
 
 def _dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
@@ -29,27 +39,30 @@ def _dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
     return d_in, s.d_state, s.d_conv, dt_rank
 
 
-def mamba_param_descs(cfg: ArchConfig) -> Dict:
+def mamba_param_descs(cfg: ArchConfig,
+                      rules: AxisRules = DEFAULT_RULES) -> Dict:
     d = cfg.d_model
     d_in, n, d_conv, dt_rank = _dims(cfg)
+    tp = rules.tensor_axis
     return {
-        "in_proj": ParamDesc((d, 2 * d_in)),
-        "conv_w": ParamDesc((d_conv, d_in), "conv"),
-        "conv_b": ParamDesc((d_in,), "zeros"),
-        "x_proj": ParamDesc((d_in, dt_rank + 2 * n)),
-        "dt_proj": ParamDesc((dt_rank, d_in)),
-        "dt_bias": ParamDesc((d_in,), "dt_bias"),
-        "a_log": ParamDesc((d_in, n), "a_log"),
-        "d_skip": ParamDesc((d_in,), "ones"),
-        "out_proj": ParamDesc((d_in, d)),
+        "in_proj": ParamDesc((d, 2 * d_in), pspec=P(None, tp), parts=2),
+        "conv_w": ParamDesc((d_conv, d_in), "conv", pspec=P(None, tp)),
+        "conv_b": ParamDesc((d_in,), "zeros", pspec=P(tp)),
+        "x_proj": ParamDesc((d_in, dt_rank + 2 * n), pspec=P(tp, None)),
+        "dt_proj": ParamDesc((dt_rank, d_in), pspec=P(None, tp)),
+        "dt_bias": ParamDesc((d_in,), "dt_bias", pspec=P(tp)),
+        "a_log": ParamDesc((d_in, n), "a_log", pspec=P(tp, None)),
+        "d_skip": ParamDesc((d_in,), "ones", pspec=P(tp)),
+        "out_proj": ParamDesc((d_in, d), pspec=P(tp, None)),
     }
 
 
-def _ssm_inputs(p: Dict, x: torch.Tensor, cfg: ArchConfig):
+def _ssm_inputs(p: Dict, x: torch.Tensor, cfg: ArchConfig,
+                rules: AxisRules = DEFAULT_RULES):
     """x: (..., d_in) post-conv activations -> (dt, B, C) float32 with
     dt: (..., d_in), B/C: (..., N)."""
     _, n, _, dt_rank = _dims(cfg)
-    proj = x @ p["x_proj"]
+    proj = C.all_reduce_sum(x @ p["x_proj"], rules, rules.tensor_axis)
     dt, b, c = torch.split(proj, [dt_rank, n, n], dim=-1)
     dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
     return dt.float(), b.float(), c.float()
@@ -66,7 +79,8 @@ def _causal_conv(p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def mamba_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
-                  return_state: bool = False):
+                  return_state: bool = False,
+                  rules: AxisRules = DEFAULT_RULES):
     """Full-sequence scan. x: (B, S, D) -> (B, S, D)[, (h_last, conv_state)].
     Under grad (grad mode on and an operand of the scan requiring grad)
     the scan goes through :func:`scan_autograd.selective_scan_grad`, the
@@ -75,7 +89,7 @@ def mamba_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
     xz = x @ p["in_proj"]
     xi_raw, z = xz.chunk(2, dim=-1)                      # (B,S,d_in)
     xi = _causal_conv(p, xi_raw)
-    dt, bm, cm = _ssm_inputs(p, xi, cfg)                 # f32
+    dt, bm, cm = _ssm_inputs(p, xi, cfg, rules)          # f32
     a = -torch.exp(p["a_log"].float())                   # (d_in, N)
     scan = scan_ops.selective_scan
     if torch.is_grad_enabled() and any(
@@ -83,7 +97,7 @@ def mamba_forward(p: Dict, x: torch.Tensor, cfg: ArchConfig, *,
         scan = scan_autograd.selective_scan_grad
     y, h_last = scan(dt, bm, cm, xi.float(), a, p["d_skip"])
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ p["out_proj"]
+    out = C.all_reduce_sum(y @ p["out_proj"], rules, rules.tensor_axis)
     if not return_state:
         return out
     d_conv = p["conv_w"].shape[0]
@@ -105,7 +119,8 @@ def mamba_state_shapes(cfg: ArchConfig, batch: int) -> Dict:
 
 
 def mamba_decode_step(p: Dict, x: torch.Tensor, h: torch.Tensor,
-                      conv: torch.Tensor, cfg: ArchConfig
+                      conv: torch.Tensor, cfg: ArchConfig,
+                      rules: AxisRules = DEFAULT_RULES
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One token. x: (B, 1, D); h: (B, d_in, N) f32; conv: (B, d_conv-1, d_in).
     Returns (out (B,1,D), h', conv')."""
@@ -115,7 +130,7 @@ def mamba_decode_step(p: Dict, x: torch.Tensor, h: torch.Tensor,
     window = torch.cat([conv, xi[:, None]], dim=1)       # (B, d_conv, d_in)
     xc = torch.einsum("bki,ki->bi", window, p["conv_w"]) + p["conv_b"]
     xc = F.silu(xc)
-    dt, bm, cm = _ssm_inputs(p, xc, cfg)                 # (B,d_in),(B,N),(B,N)
+    dt, bm, cm = _ssm_inputs(p, xc, cfg, rules)          # (B,d_in),(B,N),(B,N)
     a = -torch.exp(p["a_log"].float())
     abar = torch.exp(dt[..., None] * a)                  # (B, d_in, N)
     bx = (dt * xc.float())[..., None] * bm[:, None, :]
@@ -123,5 +138,5 @@ def mamba_decode_step(p: Dict, x: torch.Tensor, h: torch.Tensor,
     y = torch.einsum("bin,bn->bi", h, cm)
     y = y + p["d_skip"].float() * xc.float()
     y = y.to(x.dtype) * F.silu(z)
-    out = (y @ p["out_proj"])[:, None]
-    return out, h, window[:, 1:]
+    out = C.all_reduce_sum(y @ p["out_proj"], rules, rules.tensor_axis)
+    return out[:, None], h, window[:, 1:]

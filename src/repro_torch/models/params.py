@@ -2,10 +2,12 @@
 initialisers.
 
 Every parameter is declared once as a :class:`ParamDesc` with the name,
-shape and initialiser kind the reference gives it
+shape, partition spec and initialiser kind the reference gives it
 (``repro/models/params.py``), so a weight tree of the reference maps leaf
-to leaf (``interop.model_params_from_arrays``), and ``param_shapes``
-gives the tree's shapes on the ``meta`` device without allocating it.
+to leaf (``interop.model_params_from_arrays``), ``param_shapes`` gives
+the tree's shapes on the ``meta`` device without allocating it, and
+``param_pspecs`` its partition specs (``sharding/place.py`` cuts a rank's
+shards by them).
 Initialisers draw from an
 explicit ``torch.Generator``, on that generator's device; their bits
 differ from ``jax.random``'s, their distributions do not.
@@ -14,10 +16,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+
+from repro_torch.sharding.place import local_shape
+from repro_torch.sharding.specs import P
 
 Tree = Any
 
@@ -27,9 +32,18 @@ class ParamDesc:
     shape: Tuple[int, ...]
     init: str = "normal"     # normal | zeros | ones | scaled | conv | a_log | dt_bias
     scale: float = 1.0       # fan-in handled by "scaled"
+    pspec: Optional[P] = None    # default: every dim replicated
+    # a fused product of ``parts`` equal column blocks, each sharded on its
+    # own (``sharding/place.py``)
+    parts: int = 1
+
+    def __post_init__(self):
+        if self.pspec is None:
+            self.pspec = P(*(None,) * len(self.shape))
 
     def stack(self, g: int) -> "ParamDesc":
-        return ParamDesc((g,) + self.shape, self.init, self.scale)
+        return ParamDesc((g,) + self.shape, self.init, self.scale,
+                         P(None, *self.pspec), self.parts)
 
 
 def _materialize(desc: ParamDesc, gen: torch.Generator) -> torch.Tensor:
@@ -82,6 +96,24 @@ def param_shapes(tree: Tree, dtype: torch.dtype = torch.bfloat16) -> Tree:
     if isinstance(tree, ParamDesc):
         return torch.empty(tree.shape, dtype=dtype, device="meta")
     return {k: param_shapes(v, dtype) for k, v in tree.items()}
+
+
+def param_pspecs(tree: Tree) -> Tree:
+    """The descriptor tree's partition specs."""
+    if isinstance(tree, ParamDesc):
+        return tree.pspec
+    return {k: param_pspecs(v) for k, v in tree.items()}
+
+
+def local_descs(tree: Tree, mesh) -> Tree:
+    """The descriptors of one rank's shards on ``mesh``: each shape cut
+    by its spec (None: the tree as is)."""
+    if mesh is None:
+        return tree
+    if isinstance(tree, ParamDesc):
+        return dataclasses.replace(
+            tree, shape=local_shape(tree.shape, tree.pspec, mesh))
+    return {k: local_descs(v, mesh) for k, v in tree.items()}
 
 
 def count_params(tree: Tree) -> int:

@@ -64,7 +64,24 @@ from repro_torch.sim.state import make_cluster_state
 from repro_torch.sim.topology import Topology
 from repro_torch import train_lm
 from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import (init_mesh, make_production_mesh,
+                                     make_test_mesh, spawn)
 from repro_torch.workload import StreamingWorkload
+
+def import_reference_dryrun():
+    """``repro.launch.dryrun``, for its constants and rules: importing it
+    sets ``XLA_FLAGS`` to fake 512 host devices, which is put back, so no
+    later JAX start in this process sees them."""
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        import repro.launch.dryrun as ref_dryrun
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+    return ref_dryrun
+
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -94,6 +111,15 @@ def test_port_files_include_the_launch_tier():
     import checks cover it."""
     for rel in ("launch/__init__.py", "launch/inputs.py",
                 "launch/roofline.py", "launch/dryrun.py"):
+        assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
+
+
+def test_port_files_include_the_sharding_tier():
+    """The walk over the port's files reaches the sharding tier and the
+    mesh, so the import checks cover them."""
+    for rel in ("sharding/__init__.py", "sharding/specs.py",
+                "sharding/place.py", "sharding/collectives.py",
+                "launch/mesh.py"):
         assert ROOT / "src" / "repro_torch" / rel in PORT_FILES, rel
 
 
@@ -210,7 +236,16 @@ ENTRY_POINTS = {
                                    "decode_32k"]),
     "dryrun.run_pair": lambda: dryrun.run_pair("tinyllama-1.1b",
                                                "decode_32k"),
+    "dryrun(single)": lambda: dryrun.main(["--all", "--mesh", "single"]),
+    "spawn": lambda: spawn(_noop, make_test_mesh(1, 1), backend="gloo",
+                           device="cuda"),
+    "init_mesh": lambda: init_mesh(make_test_mesh(1, 1), backend="gloo",
+                                   device="cuda"),
 }
+
+
+def _noop(mesh):
+    return None
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -298,6 +333,21 @@ RL_CONSTANTS = {
 def test_copied_rl_constant_equals_reference(name):
     got, want = RL_CONSTANTS[name]
     assert got == want
+
+
+def test_dry_run_budget_and_production_meshes_equal_reference(monkeypatch):
+    """``FSDP_BUDGET_BYTES`` and the production meshes' axes and sizes
+    (the reference's ``make_production_mesh`` with ``jax.make_mesh``
+    stood in for, so no 512 devices are needed)."""
+    import repro.launch.mesh as ref_mesh
+    assert dryrun.FSDP_BUDGET_BYTES == \
+        import_reference_dryrun().FSDP_BUDGET_BYTES
+    monkeypatch.setattr(ref_mesh.jax, "make_mesh",
+                        lambda shape, axes: (tuple(shape), tuple(axes)))
+    for multi in (False, True):
+        port = make_production_mesh(multi_pod=multi)
+        shape, axes = ref_mesh.make_production_mesh(multi_pod=multi)
+        assert (port.axis_sizes, port.axis_names) == (shape, axes)
 
 
 def test_synthetic_data_defaults_equal_reference():

@@ -43,6 +43,7 @@ from repro_torch.models.layers import sinusoidal_positions
 from repro_torch.models.model import PE_ROWS, decode_positions, param_descs
 from repro_torch.models.params import ParamDesc
 from repro_torch.serving.steps import make_prefill_step, make_serve_step
+from repro_torch.sharding.specs import DEFAULT_RULES
 from test_torch_models import SCHEDULES, _close, _pair, _same_cache
 
 ARCH = "whisper-small"
@@ -99,10 +100,12 @@ def test_cross_attention_matches_reference(pair, fn):
             p_ref, jnp.asarray(x), jnp.asarray(src), ref.cfg, rules)
         _close(attention.cross_attn_forward(
             p, torch.from_numpy(x), attention.cross_attn_cache(
-                p, torch.from_numpy(src))), want, fn)
+                p, torch.from_numpy(src), port.cfg, DEFAULT_RULES), port.cfg,
+            DEFAULT_RULES), want, fn)
         return
     want_cache = ref_attention.cross_attn_cache(p_ref, jnp.asarray(src))
-    cache = attention.cross_attn_cache(p, torch.from_numpy(src))
+    cache = attention.cross_attn_cache(p, torch.from_numpy(src), port.cfg,
+                                       DEFAULT_RULES)
     if fn == "cross_attn_cache":
         assert set(cache) == set(want_cache) == {"k", "v"}
         for key in cache:
@@ -111,7 +114,8 @@ def test_cross_attention_matches_reference(pair, fn):
     want = ref_attention.cross_attn_decode(p_ref, jnp.asarray(x[:, :1]),
                                            want_cache, rules)
     _close(attention.cross_attn_decode(p, torch.from_numpy(x[:, :1]),
-                                       cache), want, fn)
+                                       cache, port.cfg, DEFAULT_RULES), want,
+           fn)
 
 
 @pytest.mark.parametrize("schedule", ["full", "long_prompt"])
